@@ -3,14 +3,18 @@
 The JAX package ``monocular_visual_odometry_va4mr_tpu`` is the reference this
 port is held against; the layout mirrors it (``core/``, ``ops/``,
 ``backend/``, ``pipeline/``) so every module's counterpart sits at the same
-path.  Plain tensor code is PyTorch; the one Pallas kernel on the main path
-(``ops/klt_pallas2.py::_klt2_kernel``) is a hand-written CUDA kernel for
-Hopper (``csrc/klt_lk.cu``), built with ``nvcc`` at first use.
+path.  Plain tensor code is PyTorch; each Pallas kernel of the reference is a
+hand-written CUDA kernel for Hopper, built with ``nvcc`` at first use:
+``ops/klt_pallas2.py::_klt2_kernel`` as ``csrc/klt_lk.cu`` and
+``ops/klt_pallas.py::_klt_kernel`` as ``csrc/klt_v1.cu``.
 
 This package imports ``torch`` and never ``jax``.
 
-Slice 1 covers the main path: the KLT bootstrap and the per-frame step with
-in-step windowed BA (``pipeline/vo.py``).
+Ported so far: the KLT bootstrap and the per-frame step with in-step
+windowed BA (``pipeline/vo.py``) on the ``pallas2``, ``pallas`` and ``xla``
+trackers; the host runner with recovery, host-side BA and checkpoints
+(``pipeline/runner.py``), the block driver (``pipeline/scan_driver.py``) and
+the CLI (``run.py``).  Entry points run on ``cuda`` unless asked otherwise.
 """
 import torch as _torch
 

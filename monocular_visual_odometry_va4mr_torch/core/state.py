@@ -7,7 +7,8 @@ host, ``pipeline/vo.py``), and keeping it on the host costs no sync.
 
 ``to_numpy`` / ``from_numpy`` carry a state across to and from the JAX
 package: a dict of numpy arrays, one entry per field, with
-``prev_pyramid`` as a tuple.
+``prev_pyramid`` as a tuple (``from_numpy`` also takes a JAX ``FrameState``
+itself).
 """
 from __future__ import annotations
 
@@ -78,12 +79,15 @@ class FrameState:
         return out
 
     @staticmethod
-    def from_numpy(d: dict, device=None) -> "FrameState":
+    def from_numpy(d, device=None) -> "FrameState":
+        """A state from a dict of arrays, one per field, or from any object
+        with the fields as attributes (a JAX ``FrameState``: each field is
+        read through ``np.asarray``)."""
         kw = {}
         for f in dataclasses.fields(FrameState):
-            v = d[f.name]
+            v = d[f.name] if isinstance(d, dict) else getattr(d, f.name)
             if f.name == "prev_pyramid":
-                kw[f.name] = tuple(torch.as_tensor(np.asarray(p)).to(device)
+                kw[f.name] = tuple(torch.as_tensor(np.array(p)).to(device)
                                    for p in v)
             elif f.name == "frame_idx":
                 kw[f.name] = int(v)

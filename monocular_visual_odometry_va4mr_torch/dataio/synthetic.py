@@ -1,17 +1,167 @@
-"""KITTI-like textured corridor scenes with exact ground truth.
+"""Synthetic VO scenes with exact ground truth.
 
-A verbatim copy of the textured-scene part of
-``monocular_visual_odometry_va4mr_tpu/dataio/synthetic.py`` (``_value_noise``,
-``TexturedScene``, ``make_textured_scene``, ``_render_textured``), numpy only,
-so that the port and ``chip_smoke.py`` render ``bench.py``'s scene without
-importing the JAX package.  ``tests/test_torch_core.py`` asserts that both
-copies render identical frames.
+A verbatim copy of two parts of
+``monocular_visual_odometry_va4mr_tpu/dataio/synthetic.py``, numpy only, so
+that the port, its CLI and ``chip_smoke.py`` render scenes without importing
+the JAX package:
+
+* the beacon corridor (``SyntheticScene``, ``make_corridor_scene``,
+  ``render_frame``, ``render_sequence``): 3-D points rendered as textured
+  Gaussian blobs, the CLI's ``--dataset synthetic``;
+* the KITTI-like textured corridor (``_value_noise``, ``TexturedScene``,
+  ``make_textured_scene``, ``_render_textured``): ``bench.py``'s scene.
+
+``tests/test_torch_core.py`` and ``tests/test_torch_drivers.py`` assert that
+both copies render identical frames.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticScene:
+    K: np.ndarray  # (3,3) intrinsics
+    points: np.ndarray  # (P, 3) world points
+    intensities: np.ndarray  # (P,) blob brightness
+    poses_WC: np.ndarray  # (F, 4, 4) ground-truth camera-to-world poses
+    image_shape: tuple  # (H, W)
+    # Per-point band-limited texture (random sinusoid mixture): makes every
+    # beacon visually unique so descriptor matching (SIFT ratio test) works,
+    # not just KLT.  freqs (P,C,2) rad/px, phases (P,C), amps (P,C).
+    tex_freqs: np.ndarray = None
+    tex_phases: np.ndarray = None
+    tex_amps: np.ndarray = None
+
+    @property
+    def num_frames(self):
+        return self.poses_WC.shape[0]
+
+    def pose_CW(self, i):
+        T = self.poses_WC[i]
+        Ti = np.eye(4)
+        Ti[:3, :3] = T[:3, :3].T
+        Ti[:3, 3] = -T[:3, :3].T @ T[:3, 3]
+        return Ti
+
+
+def make_corridor_scene(
+    seed: int = 0,
+    num_frames: int = 60,
+    num_points: int = 4000,
+    image_shape=(480, 640),
+    step: float = 1.0,
+    turn_rate_deg: float = 0.35,
+) -> SyntheticScene:
+    """Camera driving forward (+z) through a point corridor with a gentle turn
+    (KITTI-like motion; scale chosen so per-frame parallax resembles the real
+    datasets)."""
+    rng = np.random.default_rng(seed)
+    H, W = image_shape
+    K = np.array(
+        [[0.6 * W, 0.0, W / 2.0], [0.0, 0.6 * W, H / 2.0], [0.0, 0.0, 1.0]]
+    )
+
+    # Points in a corridor along z, sides + ground + sparse mid-air clutter.
+    # Walls close enough that bootstrap-baseline parallax clears the 2-degree
+    # triangulation gate the reference uses (main.py:24).
+    length = num_frames * step + 60.0
+    z = rng.uniform(0.0, length, num_points)
+    side = rng.choice([-1.0, 1.0], num_points)
+    x = side * rng.uniform(1.5, 8.0, num_points)
+    y = rng.uniform(-2.5, 2.0, num_points)
+    points = np.stack([x, y, z], axis=1)
+    intensities = rng.uniform(90.0, 255.0, num_points)
+
+    # Unique band-limited texture per point.
+    C = 6
+    ang = rng.uniform(0, np.pi, (num_points, C))
+    mag = rng.uniform(0.4, 1.9, (num_points, C))  # rad/px, below Nyquist
+    tex_freqs = np.stack([mag * np.cos(ang), mag * np.sin(ang)], axis=-1)
+    tex_phases = rng.uniform(0, 2 * np.pi, (num_points, C))
+    tex_amps = rng.uniform(0.3, 1.0, (num_points, C))
+
+    # Ground-truth trajectory: forward with a slow yaw drift.
+    poses = np.zeros((num_frames, 4, 4))
+    yaw = 0.0
+    pos = np.zeros(3)
+    for i in range(num_frames):
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_WC = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        T = np.eye(4)
+        T[:3, :3] = R_WC
+        T[:3, 3] = pos
+        poses[i] = T
+        fwd = R_WC @ np.array([0.0, 0.0, 1.0])
+        pos = pos + step * fwd
+        yaw += np.radians(turn_rate_deg)
+
+    return SyntheticScene(K, points, intensities, poses, image_shape,
+                          tex_freqs, tex_phases, tex_amps)
+
+
+def render_frame(scene, frame: int, sigma: float = 1.1,
+                 radius: int = 4) -> np.ndarray:
+    """Render frame ``frame`` as an (H, W) f32 grayscale image in [0, 255]."""
+    if hasattr(scene, "render"):
+        return scene.render(frame)
+    H, W = scene.image_shape
+    T_CW = scene.pose_CW(frame)
+    Xc = scene.points @ T_CW[:3, :3].T + T_CW[:3, 3]
+    z = Xc[:, 2]
+    vis = z > 0.5
+    u = scene.K[0, 0] * Xc[:, 0] / np.maximum(z, 1e-6) + scene.K[0, 2]
+    v = scene.K[1, 1] * Xc[:, 1] / np.maximum(z, 1e-6) + scene.K[1, 2]
+    # Blob centers must round inside the image so padded stamps stay in range
+    # (edge blobs are clipped rather than wrapped).
+    vis &= (np.round(u) >= 0) & (np.round(u) <= W - 1)
+    vis &= (np.round(v) >= 0) & (np.round(v) <= H - 1)
+
+    img = np.zeros((H + 2 * radius, W + 2 * radius), np.float32)
+    ax = np.arange(-radius, radius + 1, dtype=np.float32)
+    gx, gy = np.meshgrid(ax, ax)
+
+    iu = np.round(u[vis]).astype(np.int64) + radius
+    iv = np.round(v[vis]).astype(np.int64) + radius
+    du = (u[vis] - np.round(u[vis]))[:, None, None]
+    dv = (v[vis] - np.round(v[vis]))[:, None, None]
+    amp = scene.intensities[vis][:, None, None]
+    # Gaussian envelope exactly tracking the subpixel center.
+    env = np.exp(-((gx[None] - du) ** 2 + (gy[None] - dv) ** 2)
+                 / (2.0 * sigma**2))
+    if scene.tex_freqs is not None:
+        # Texture sampled in the point's own (stamp-relative) frame so it is
+        # identical (up to subpixel shift) in every frame -> matchable.
+        fx = scene.tex_freqs[vis][:, :, 0][:, :, None, None]
+        fy = scene.tex_freqs[vis][:, :, 1][:, :, None, None]
+        ph = scene.tex_phases[vis][:, :, None, None]
+        am = scene.tex_amps[vis][:, :, None, None]
+        xloc = (gx[None] - du)[:, None]
+        yloc = (gy[None] - dv)[:, None]
+        wave = np.sum(am * np.cos(fx * xloc + fy * yloc + ph), axis=1)
+        wave = wave / (np.sum(scene.tex_amps[vis], axis=1)[:, None, None] + 1e-9)
+        pattern = 0.55 + 0.45 * wave  # in [0.1, 1.0]
+    else:
+        pattern = 1.0
+    stamps = amp * env * pattern
+    # Accumulate stamps (np.add.at handles overlapping blobs).
+    win = 2 * radius + 1
+    rows = iv[:, None, None] + gy[None].astype(np.int64)
+    cols = iu[:, None, None] + gx[None].astype(np.int64)
+    np.add.at(img, (rows.reshape(-1), cols.reshape(-1)), stamps.reshape(-1))
+
+    out = np.clip(img[radius:-radius, radius:-radius], 0.0, 255.0)
+    return out.astype(np.float32)
+
+
+def render_sequence(scene):
+    """Yield (frame_index, image) pairs for the whole scene."""
+    for i in range(scene.num_frames):
+        yield i, render_frame(scene, i)
+
+
 
 
 def _value_noise(u, v, seed, octaves=5, base_cell=2.0, footprint=None):

@@ -1,0 +1,1 @@
+from .ate import ate_rmse, rpe_stats, umeyama_alignment  # noqa: F401

@@ -1,14 +1,97 @@
-"""Dense image ops on the main path (port of the main-path subset of
-``ops/image.py``): edge-replicated shifts, Sobel gradients, box filter and
-the flat (full, /mid, /coarse) box pyramid the KLT chain reads.
+"""Dense image ops (port of ``ops/image.py``): separable Gaussian blur,
+image pyramids, gradients, box filter, bilinear sampling.
 
-``gaussian_blur``, ``pyr_down``, ``build_pyramid`` and ``bilinear_sample``
-feed only the XLA tracker and SIFT, which later slices port.
+The flat (full, /mid, /coarse) box pyramid feeds the Pallas-style KLT
+chain; the Gaussian pyramid and central gradients feed the gather tracker
+(``ops/klt.py``).  ``scharr_gradients`` has no caller in either package and
+is not ported.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def gaussian_kernel_1d(sigma: float,
+                       radius: int | None = None) -> torch.Tensor:
+    """Normalized 1-D Gaussian taps (static length)."""
+    if radius is None:
+        radius = max(1, int(3.0 * sigma + 0.5))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / torch.sum(k)
+
+
+def _conv_sep(img: torch.Tensor, kx: torch.Tensor,
+              ky: torch.Tensor) -> torch.Tensor:
+    """Separable 2-D correlation with SAME (edge-replicate) padding: a
+    column pass with ``ky``, then a row pass with ``kx``."""
+    rx = kx.shape[0] // 2
+    ry = ky.shape[0] // 2
+    kx = kx.to(img.device, img.dtype)
+    ky = ky.to(img.device, img.dtype)
+    x = F.pad(img[None, None], (rx, rx, ry, ry), mode="replicate")
+    x = F.conv2d(x, ky.reshape(1, 1, -1, 1))
+    x = F.conv2d(x, kx.reshape(1, 1, 1, -1))
+    return x[0, 0]
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  radius: int | None = None) -> torch.Tensor:
+    k = gaussian_kernel_1d(sigma, radius)
+    return _conv_sep(img, k, k)
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """Half-resolution downsample with the cv2.pyrDown 5-tap binomial
+    filter."""
+    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+    return _conv_sep(img, k, k)[::2, ::2]
+
+
+def build_pyramid(img: torch.Tensor, num_levels: int):
+    """Gaussian pyramid: level 0 = input, level l = pyr_down^l."""
+    levels = [img.to(torch.float32)]
+    for _ in range(num_levels - 1):
+        levels.append(pyr_down(levels[-1]).contiguous())
+    return tuple(levels)
+
+
+def central_gradients(img: torch.Tensor):
+    """Central-difference gradients (the gather tracker's)."""
+    gx = 0.5 * (_shift(img, 0, 1) - _shift(img, 0, -1))
+    gy = 0.5 * (_shift(img, 1, 0) - _shift(img, -1, 0))
+    return gx, gy
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of an (H, W) image at (..., 2) [x, y] pixel
+    coordinates, clamped to the border."""
+    H, W = img.shape
+    x = uv[..., 0].clamp(0.0, W - 1.000001)
+    y = uv[..., 1].clamp(0.0, H - 1.000001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    # A NaN coordinate reads pixel 0 (the reference's NaN -> int is 0) and
+    # comes back NaN through its weights.
+    x0i = torch.nan_to_num(x0).to(torch.int64)
+    y0i = torch.nan_to_num(y0).to(torch.int64)
+    x1i = torch.clamp(x0i + 1, max=W - 1)
+    y1i = torch.clamp(y0i + 1, max=H - 1)
+    return (img[y0i, x0i] * (1 - fx) * (1 - fy)
+            + img[y0i, x1i] * fx * (1 - fy)
+            + img[y1i, x0i] * (1 - fx) * fy
+            + img[y1i, x1i] * fx * fy)
+
+
+def window_coords(window: int) -> torch.Tensor:
+    """(window*window, 2) relative (dx, dy) offsets centered on 0."""
+    r = (window - 1) / 2.0
+    ax = torch.arange(window, dtype=torch.float32) - r
+    dy, dx = torch.meshgrid(ax, ax, indexing="ij")
+    return torch.stack([dx.reshape(-1), dy.reshape(-1)], -1)
 
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

@@ -35,32 +35,13 @@ FEAT_COLS = 8  # [tx, ty, fx, fy, qx, qy, gx0, gy0]
 OUT_COLS = 5  # [gx, gy, ok, resid, min_eig]
 
 
-def _sample_patches(img, oy, ox, fy, fx, n):
-    """n x n bilinear patches with integer corners (oy, ox) + (i, j) and
-    per-feature weights (fy, fx), reads clamped to the image.
-
-    (N,) origins and weights -> (N, n, n), in the reference's operation
-    order."""
-    H, W = img.shape
-    ar = torch.arange(n + 1, device=img.device)
-    rows = (oy.to(torch.int64)[:, None] + ar).clamp(0, H - 1)
-    cols = (ox.to(torch.int64)[:, None] + ar).clamp(0, W - 1)
-    P = img[rows[:, :, None], cols[:, None, :]]  # (N, n+1, n+1)
-    t, t01 = P[:, :-1, :-1], P[:, :-1, 1:]
-    t10, t11 = P[:, 1:, :-1], P[:, 1:, 1:]
-    fx = fx[:, None, None]
-    fy = fy[:, None, None]
-    return (t * (1 - fx) * (1 - fy) + t01 * fx * (1 - fy)
-            + t10 * (1 - fx) * fy + t11 * fx * fy)
-
-
 def klt_lk_plain(tmpl, srch, feat, valid, *, win, num_iters, eps,
                  min_eig_threshold, max_residual):
     """Plain PyTorch twin of the kernel: same inputs, same (N, 5) output."""
     tx, ty, phx, phy, qx, qy, gx, gy = feat.unbind(1)
     # Template on a (win+2)^2 grid: the window plus the one-pixel ring the
     # central differences need.
-    Tb = _sample_patches(tmpl, ty - 1, tx - 1, phy, phx, win + 2)
+    Tb = v1.sample_patches(tmpl, ty - 1, tx - 1, phy, phx, win + 2)
     WT = Tb[:, 1:-1, 1:-1]
     Ix = 0.5 * (Tb[:, 1:-1, 2:] - Tb[:, 1:-1, :-2])
     Iy = 0.5 * (Tb[:, 2:, 1:-1] - Tb[:, :-2, 1:-1])
@@ -77,7 +58,7 @@ def klt_lk_plain(tmpl, srch, feat, valid, *, win, num_iters, eps,
     def sample_window(gy, gx):
         ny = torch.floor(gy).clamp(-8.0, 7.0)
         nx = torch.floor(gx).clamp(-8.0, 7.0)
-        return _sample_patches(srch, qy + ny, qx + nx, gy - ny, gx - nx, win)
+        return v1.sample_patches(srch, qy + ny, qx + nx, gy - ny, gx - nx, win)
 
     frozen = torch.zeros_like(valid)
     for _ in range(num_iters):
@@ -248,6 +229,7 @@ def track_multilevel(
     pts: torch.Tensor,
     valid: torch.Tensor,
     *,
+    track_fn=None,
     num_iters: int = 8,
     mid_iters: int = 0,
     eps: float = 0.01,
@@ -258,6 +240,8 @@ def track_multilevel(
     """Coarse-to-fine tracking: /16 cost-volume prior -> LK on the /mid
     plane -> LK at full resolution.  ``prev_pyr``/``next_pyr`` carry
     (full, mid, coarse) planes (``ops/image.build_flat_pyramid``).
+    ``track_fn`` is the single-level tracker, :func:`track_features_pallas2`
+    by default or ``klt_pallas.track_features_pallas``.
 
     ``mid_iters`` = 0 means the mid pass runs ``num_iters`` iterations, as
     the reference's code does (``klt_pallas2.py:509``); it does NOT turn the
@@ -272,12 +256,14 @@ def track_multilevel(
     flow_c = v1.coarse_flow_volume(coarse_p, coarse_n)
     pred = v1.sample_map_onehot(flow_c, pts_safe / c_scale) * c_scale
 
+    if track_fn is None:
+        track_fn = track_features_pallas2
     kw = dict(eps=eps, min_eig_threshold=min_eig_threshold,
               max_residual=max_residual, win=win)
-    p_mid, ok_mid, _ = track_features_pallas2(
+    p_mid, ok_mid, _ = track_fn(
         (mid_p,), (next_pyr[1],), pts_safe / mid_scale, valid,
         prior=pred / mid_scale, num_iters=mid_iters or num_iters, **kw)
     flow_mid = (p_mid - pts_safe / mid_scale) * mid_scale
     prior_full = torch.where(ok_mid[:, None], flow_mid, pred)
-    return track_features_pallas2(prev_pyr, next_pyr, pts, valid,
-                                  prior=prior_full, num_iters=num_iters, **kw)
+    return track_fn(prev_pyr, next_pyr, pts, valid, prior=prior_full,
+                    num_iters=num_iters, **kw)

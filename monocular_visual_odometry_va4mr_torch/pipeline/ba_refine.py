@@ -1,0 +1,88 @@
+"""Sliding-window BA refinement woven into the host loop (port of
+``pipeline/ba_refine.py``, the runner's ``--ba-every``).
+
+A landmark keeps its slot for its whole life, so a window of ``lm_uv``
+snapshots is the (W, L, 2) observation grid of a ``backend.ba.BAWindow``.
+
+Host flow (``pipeline/runner.py``):
+  * every frame, push (T_CW, lm_uv, lm_valid & lm_inlier, lm_gen) onto a
+    host-side ring;
+  * every ``ba_every`` frames, build a window from the ring and the current
+    ``lm_xyz``, run ``backend.ba.run_ba`` and write the refined current pose
+    and landmarks back into the state (and the refined poses into the ring).
+
+Only landmarks observed in >= ``min_obs`` window frames by their current
+slot tenant participate; everything else passes through unchanged.  The
+landmark-sharded variant (``mesh=``) is ROADMAP.md Queue 1 item 14.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from ..backend import ba
+from ..core.camera import Camera
+from ..core.state import FrameState
+
+
+@dataclasses.dataclass
+class BARing:
+    """Host-side ring of per-frame observation snapshots (numpy)."""
+
+    window: int
+    poses: List[np.ndarray] = dataclasses.field(default_factory=list)
+    obs_uv: List[np.ndarray] = dataclasses.field(default_factory=list)
+    obs_mask: List[np.ndarray] = dataclasses.field(default_factory=list)
+    obs_gen: List[np.ndarray] = dataclasses.field(default_factory=list)
+
+    def push(self, state: FrameState) -> None:
+        self.poses.append(state.T_CW.cpu().numpy())
+        self.obs_uv.append(state.lm_uv.cpu().numpy())
+        self.obs_mask.append((state.lm_valid & state.lm_inlier).cpu().numpy())
+        self.obs_gen.append(state.lm_gen.cpu().numpy())
+        if len(self.poses) > self.window:
+            for lst in (self.poses, self.obs_uv, self.obs_mask, self.obs_gen):
+                lst.pop(0)
+
+    def __len__(self):
+        return len(self.poses)
+
+
+def refine(state: FrameState, ring: BARing, cam: Camera, *, iters: int = 4,
+           huber_px: float = 3.0, min_obs: int = 3, mesh=None) -> FrameState:
+    """Run windowed BA over the ring and fold the result into the state.
+
+    Returns the state with refined ``T_CW`` and ``lm_xyz`` (only landmarks
+    that participated are touched), and rewrites ``ring.poses`` with the
+    refined window poses."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "landmark-sharded BA (mesh=) is ROADMAP.md Queue 1 item 14 "
+            "(parallel/); the port runs BA on one device")
+    W = len(ring)
+    if W < 3:
+        return state
+    dev = state.lm_xyz.device
+    obs_mask = np.stack(ring.obs_mask)  # (W, L)
+    # Slot-reuse guard: only observations of the slot's CURRENT tenant
+    # (generation) count.
+    gen_now = state.lm_gen.cpu().numpy()
+    obs_mask &= np.stack(ring.obs_gen) == gen_now[None, :]
+    participate = ((obs_mask.sum(0) >= min_obs)
+                   & state.lm_valid.cpu().numpy())
+    window = ba.BAWindow(
+        T_CW=torch.from_numpy(np.stack(ring.poses)).to(dev, torch.float32),
+        lm_xyz=state.lm_xyz,
+        obs_uv=torch.from_numpy(np.stack(ring.obs_uv)).to(dev),
+        obs_mask=torch.from_numpy(obs_mask & participate[None, :]).to(dev))
+    out, _ = ba.run_ba(window, cam, iters=iters, huber_px=huber_px)
+
+    part = torch.from_numpy(participate).to(dev)
+    lm_xyz = torch.where(part[:, None], out.lm_xyz, state.lm_xyz)
+    refined = out.T_CW.cpu().numpy()
+    for k in range(W):
+        ring.poses[k] = refined[k]
+    return state.replace(T_CW=out.T_CW[-1], lm_xyz=lm_xyz)

@@ -2,25 +2,35 @@
 ``pipeline/vo.py``, the main path).
 
 ``VisualOdometry(cam, config, device)`` holds the camera, the config and the
-device; ``bootstrap(img0, img1, intermediate=...)`` and ``step(state,
-image)`` are driven from a Python loop, one call per frame.
+device (``cuda`` unless the caller names another); ``bootstrap(img0, img1,
+intermediate=..., generator=...)`` and ``step(state, image, generator=...)``
+are driven from a Python loop, one call per frame (``pipeline/runner.py``,
+``pipeline/scan_driver.py``).
 
 Stage order inside a step: KLT (forward on the /4 then the full plane,
 backward check) -> PnP-RANSAC -> scale-locked landmark re-triangulation ->
 candidate promotion -> anchor maintenance -> corner replenishment -> in-step
 windowed BA on its cadence.
 
+Trackers (``config.klt.backend``): ``"pallas2"`` (the packed LK kernel,
+windows 5..15), ``"pallas"`` (the v1 LK kernel, window 15), both behind the
+/16 prior -> /4 -> full-res chain on a flat pyramid; ``"xla"`` (the gather
+tracker over a Gaussian pyramid); ``"auto"`` is ``pallas2`` on a CUDA
+device and ``xla`` elsewhere, as the reference picks its kernel tracker on
+the accelerator only.
+
 Departures from the reference, by design:
-  * RANSAC banks come from ``sampler(valid, num_hypotheses, sample_size) ->
-    (idx, ok)``; the default draws them with a ``torch.Generator``.  Tests
-    inject the reference's own draws.
+  * RANSAC banks come from ``sampler(generator, valid, num_hypotheses,
+    sample_size) -> (idx, ok)``; the default draws them with the
+    ``torch.Generator`` given to the call (the reference takes a key per
+    call).  Tests inject the reference's own draws.
   * The in-step BA trigger is a cadence known on the host (``frame_idx`` is
     a Python int): the branch runs when ``new_frame >= window`` and
     ``new_frame % every == 0``, and its result is selected on the device
     with ``torch.where(pnp_ok, ...)``, which is what the reference's
     ``lax.cond`` skip branch returns when PnP fails.  No host sync.
-  * Only ``bootstrap_method="klt"`` and the ``pallas2`` tracker semantics
-    exist in this slice; anything else raises ``NotImplementedError``.
+  * Only ``bootstrap_method="klt"`` exists so far; SIFT raises
+    ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,10 +45,23 @@ from ..core.slots import (alloc_slots, scatter_add_rows, scatter_rows,
                           stable_top_k)
 from ..core.state import STATUS_LOST, STATUS_TRACKING, FrameState, init_state
 from ..backend import ba as ba_mod
-from ..ops import corners, essential, image as imops, klt_pallas2, pnp, ransac
-from ..ops import triangulate
+from ..ops import (corners, essential, image as imops, klt, klt_pallas,
+                   klt_pallas2, pnp, ransac, triangulate)
 
-Sampler = Callable[[torch.Tensor, int, int], tuple]
+Sampler = Callable[[torch.Generator, torch.Tensor, int, int], tuple]
+
+
+def _num_klt_levels(config: PipelineConfig) -> int:
+    """Pyramid depth: reference maxLevel+1, capped so the coarsest level still
+    contains the tracking window."""
+    H, W = config.image_shape
+    levels = config.klt.max_level + 1
+    cap = 1
+    size = min(H, W)
+    while size // 2 >= 2 * config.klt.window and cap < levels:
+        size //= 2
+        cap += 1
+    return cap
 
 
 class VisualOdometry:
@@ -46,46 +69,49 @@ class VisualOdometry:
 
     def __init__(self, cam: Camera, config: PipelineConfig, device=None, *,
                  sampler: Optional[Sampler] = None, seed: int = 0):
+        """``device``: where the step runs, ``"cuda"`` when None.
+        ``sampler``: draws the RANSAC banks (default
+        ``ops.ransac.sample_minimal_sets``).  ``seed``: seeds the generator
+        of calls that are given none."""
         self.cam = cam
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         if config.bootstrap_method != "klt":
             raise NotImplementedError(
                 f"bootstrap_method={config.bootstrap_method!r}: the port has "
                 "only the KLT bootstrap so far; SIFT is ROADMAP.md Queue 1 "
                 "item 12.")
+        self.num_levels = max(_num_klt_levels(config),
+                              min(klt_pallas.COARSE_LEVEL + 1, 6))
         backend = config.klt.backend
         if backend == "auto":
             # The reference's auto picks its kernel tracker on the
             # accelerator and the gather tracker elsewhere.
             backend = "pallas2" if self.device.type == "cuda" else "xla"
-        if backend == "xla":
-            raise NotImplementedError(
-                "klt.backend='xla' (the gather tracker, ops/klt.py) is "
-                "ROADMAP.md Queue 1 item 11; set klt.backend='pallas2'.")
-        if backend != "pallas2":
-            raise NotImplementedError(
-                f"klt.backend={backend!r}: the legacy 'pallas' tracker is "
-                "ROADMAP.md Queue 2 item 2; the port has 'pallas2'.")
+        if backend not in ("pallas", "pallas2", "xla"):
+            raise ValueError(f"klt.backend={backend!r}: expected 'auto', "
+                             "'pallas', 'pallas2' or 'xla'")
         self.klt_backend = backend
         w = config.klt.window
-        if w % 2 == 0 or not 5 <= w <= 15:
+        if backend == "pallas2" and (w % 2 == 0 or not 5 <= w <= 15):
             raise ValueError(
                 f"klt.window={w} unsupported by the pallas2 backend "
                 "(odd, 5..15); set klt.backend='xla' for other windows.")
-        if sampler is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-
-            def sampler(valid, n, k):
-                return ransac.sample_minimal_sets(gen, valid, n, k)
-        self.sampler = sampler
+        if backend == "pallas" and w != 15:
+            raise ValueError(
+                "the legacy 'pallas' backend is fixed at window 15; use "
+                "'pallas2' (5..15) or 'xla'.")
+        self.sampler = sampler or ransac.sample_minimal_sets
+        self.seed = seed
+        self.generator = None  # made at first use, on self.device
         self.ba_runs = 0  # in-step BA branches run (host-known cadence)
 
     # ------------------------------------------------------------------
     def make_pyramid(self, image: torch.Tensor):
-        mid_f, coarse_f = self._pallas_factors()
-        return imops.build_flat_pyramid(image, coarse_f, mid_f)
+        if self.klt_backend in ("pallas", "pallas2"):
+            mid_f, coarse_f = self._pallas_factors()
+            return imops.build_flat_pyramid(image, coarse_f, mid_f)
+        return imops.build_pyramid(image, self.num_levels)
 
     def _pallas_factors(self):
         ml = self.config.klt.max_level
@@ -94,6 +120,14 @@ class VisualOdometry:
         if ml == 3:
             return 4, 8
         return 2, 4
+
+    def _generator(self, generator):
+        if generator is not None:
+            return generator
+        if self.generator is None:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(self.seed)
+        return self.generator
 
     def _as_image(self, img) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device, torch.float32)
@@ -106,34 +140,57 @@ class VisualOdometry:
             block_size=det.block_size, use_harris=det.use_harris,
             harris_k=det.harris_k)
 
-    def _track_fb(self, prev_pyr, next_pyr, pts, valid):
-        """Multilevel forward tracking plus the forward-backward check: the
-        backward pass re-tracks accepted features from their new position
-        with the negated forward flow as its prior, and a track survives if
-        it lands within ``fb_max_err_px`` of its start and the destination
-        window passes the min-eig/residual gates."""
+    def _track(self, prev_pyr, next_pyr, pts, valid):
         cfg = self.config.klt
-        new_pts, ok, resid = klt_pallas2.track_multilevel(
-            prev_pyr, next_pyr, pts, valid,
-            # min(..., 8): the kernel's +-8 px drift guard makes iterations
-            # beyond 8 pure latency (reference vo.py:135-136).
-            num_iters=min(cfg.num_iters, 8),
-            mid_iters=min(cfg.mid_iters, 8),
-            eps=cfg.eps, min_eig_threshold=cfg.min_eig_threshold,
-            max_residual=cfg.max_residual, win=cfg.window)
-        if cfg.fb_check:
-            back_pts, back_ok, _ = klt_pallas2.track_features_pallas2(
-                prev_pyr, next_pyr, new_pts, ok, prior=pts - new_pts,
-                num_iters=min(cfg.num_iters, cfg.fb_iters, 8),
+        if self.klt_backend in ("pallas", "pallas2"):
+            fn = (klt_pallas2.track_features_pallas2
+                  if self.klt_backend == "pallas2"
+                  else klt_pallas.track_features_pallas)
+            return klt_pallas2.track_multilevel(
+                prev_pyr, next_pyr, pts, valid, track_fn=fn,
+                # min(..., 8): the kernels' prior is within a few px, so
+                # iterations beyond 8 are pure latency (reference
+                # vo.py:135-136).
+                num_iters=min(cfg.num_iters, 8),
+                mid_iters=min(cfg.mid_iters, 8),
                 eps=cfg.eps, min_eig_threshold=cfg.min_eig_threshold,
-                max_residual=cfg.max_residual, swap_planes=True,
-                win=cfg.window)
+                max_residual=cfg.max_residual, win=cfg.window)
+        return klt.track_features(
+            prev_pyr, next_pyr, pts, valid, window=cfg.window,
+            num_iters=cfg.num_iters, eps=cfg.eps,
+            min_eig_threshold=cfg.min_eig_threshold,
+            max_residual=cfg.max_residual)
+
+    def _track_fb(self, prev_pyr, next_pyr, pts, valid):
+        """Forward tracking plus the forward-backward check: the backward
+        pass re-tracks accepted features from their new position (on the
+        kernel trackers with the negated forward flow as its prior), and a
+        track survives if it lands within ``fb_max_err_px`` of its start and
+        the destination window passes the min-eig/residual gates."""
+        cfg = self.config.klt
+        new_pts, ok, resid = self._track(prev_pyr, next_pyr, pts, valid)
+        if cfg.fb_check:
+            kw = dict(num_iters=min(cfg.num_iters, cfg.fb_iters, 8),
+                      eps=cfg.eps, min_eig_threshold=cfg.min_eig_threshold,
+                      max_residual=cfg.max_residual)
+            if self.klt_backend == "pallas2":
+                back_pts, back_ok, _ = klt_pallas2.track_features_pallas2(
+                    prev_pyr, next_pyr, new_pts, ok, prior=pts - new_pts,
+                    swap_planes=True, win=cfg.window, **kw)
+            elif self.klt_backend == "pallas":
+                back_pts, back_ok, _ = klt_pallas.track_features_pallas(
+                    next_pyr, prev_pyr, new_pts, ok, prior=pts - new_pts,
+                    **kw)
+            else:
+                back_pts, back_ok, _ = self._track(next_pyr, prev_pyr,
+                                                   new_pts, ok)
             fb2 = torch.sum((back_pts - pts) ** 2, -1)
             ok = ok & back_ok & (fb2 < cfg.fb_max_err_px ** 2)
         return new_pts, ok, resid
 
     # ------------------------------------------------------------------
-    def _bootstrap_geom(self, uv0, uv1, pair_valid, pyr1) -> FrameState:
+    def _bootstrap_geom(self, uv0, uv1, pair_valid, pyr1,
+                        generator) -> FrameState:
         """E-RANSAC -> pose -> triangulation -> initial state."""
         cfg = self.config
         cap = cfg.capacity
@@ -141,7 +198,7 @@ class VisualOdometry:
         dev = self.device
 
         idx, samp_ok = self.sampler(
-            pair_valid, cfg.essential.iterations,
+            generator, pair_valid, cfg.essential.iterations,
             5 if cfg.essential.solver == "5point" else 8)
         E, inliers, ess_ok = essential.find_essential_ransac(
             self.cam, uv0, uv1, pair_valid, idx, samp_ok,
@@ -186,9 +243,12 @@ class VisualOdometry:
             n_tracked=pair_valid.sum().to(torch.int32),
         )
 
-    def bootstrap(self, img0, img1, intermediate=()) -> FrameState:
+    def bootstrap(self, img0, img1, intermediate=(),
+                  generator: Optional[torch.Generator] = None) -> FrameState:
         """Initialize from two frames: Shi-Tomasi corners on ``img0``,
-        KLT chain-tracked through ``intermediate`` to ``img1``."""
+        KLT chain-tracked through ``intermediate`` to ``img1``.
+        ``generator`` draws the RANSAC bank (one seeded from ``seed`` if
+        None)."""
         cfg = self.config
         M = cfg.capacity.max_candidates
         dev = self.device
@@ -209,11 +269,14 @@ class VisualOdometry:
             uv1, tracked, _ = self._track_fb(prev_pyr, hop_pyr, uv1, valid)
             valid = valid & tracked
             prev_pyr = hop_pyr
-        return self._bootstrap_geom(uv0, uv1, valid, pyr1)
+        return self._bootstrap_geom(uv0, uv1, valid, pyr1,
+                                    self._generator(generator))
 
     # ------------------------------------------------------------------
-    def step(self, state: FrameState, image) -> FrameState:
-        """One frame of continuous operation."""
+    def step(self, state: FrameState, image,
+             generator: Optional[torch.Generator] = None) -> FrameState:
+        """One frame of continuous operation.  ``generator`` draws the
+        RANSAC bank (one seeded from ``seed`` if None)."""
         cfg = self.config
         K = cfg.capacity.max_landmarks
         dev = self.device
@@ -229,7 +292,8 @@ class VisualOdometry:
         cand_uv, cand_valid = new_pts[K:], tracked[K:]
 
         # (2) PnP-RANSAC; hold the pose and report LOST on failure.
-        idx, hyp_ok = self.sampler(lm_valid, cfg.pnp.iterations, 3)
+        idx, hyp_ok = self.sampler(self._generator(generator), lm_valid,
+                                   cfg.pnp.iterations, 3)
         T_CW, pnp_inliers, pnp_ok = pnp.solve_pnp_ransac(
             self.cam, state.lm_xyz, lm_uv, lm_valid, idx, hyp_ok,
             reproj_threshold_px=cfg.pnp.reproj_err_px,

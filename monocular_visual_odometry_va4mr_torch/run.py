@@ -1,0 +1,166 @@
+"""CLI driver of the port (port of ``run.py``).
+
+Examples:
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
+      --max-frames 40 --ba-every 8 --checkpoint-dir ckpt/ --checkpoint-every 20
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
+      --max-frames 40 --ba-every 8 --resume ckpt/
+
+The pipeline runs on ``--device`` (``cuda`` by default; ``cpu`` only when
+asked).  Only the synthetic corridor runs so far: the KITTI / Malaga /
+Parking loaders and the native PNG decoder, the dashboard (``--plot*``) and
+the pose graph (``--posegraph``) are ROADMAP.md Queue 1 items still to port
+and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+_TODO = {
+    "datasets": "the KITTI / Malaga / Parking loaders and the native PNG "
+                "decoder (ROADMAP.md Queue 1, dataset loaders)",
+    "plot": "the dashboard (ROADMAP.md Queue 1, viz)",
+    "posegraph": "the pose graph and loop closure (ROADMAP.md Queue 1 "
+                 "item 13)",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Monocular VO on PyTorch / CUDA")
+    p.add_argument("--dataset", required=True,
+                   choices=["kitti", "malaga", "parking", "synthetic"])
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--bootstrap", choices=["sift", "klt"], default=None,
+                   help="override the preset bootstrap method")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the pipeline (default cuda)")
+    p.add_argument("--plot", default=None,
+                   help="write the 2x2 dashboard PNG here at the end")
+    p.add_argument("--plot-live", action="store_true",
+                   help="update the dashboard every frame")
+    p.add_argument("--metrics-json", default=None,
+                   help="write per-frame metrics as JSON lines")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="write a resumable state checkpoint every "
+                        "--checkpoint-every frames")
+    p.add_argument("--checkpoint-every", type=int, default=100)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory to resume from")
+    p.add_argument("--ba-every", type=int, default=0,
+                   help="run sliding-window bundle adjustment every N frames "
+                        "(0 = off)")
+    p.add_argument("--ba-window", type=int, default=8,
+                   help="number of recent frames in the BA window")
+    p.add_argument("--posegraph", action="store_true",
+                   help="pose-graph refinement with loop closures")
+    p.add_argument("--tuned", action="store_true",
+                   help="apply core/config.py tune_for_tpu: in-step BA every "
+                        "8, 512-slot tables, 6/4 LK iterations")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+class SyntheticSpec:
+    """The beacon corridor with exact ground truth, the parking preset at
+    480x640, bootstrap over frames 0..6."""
+
+    name = "synthetic"
+    bootstrap_frames = (0, 6)
+
+    def __init__(self, seed: int, num_frames: int):
+        from .core.config import parking_config
+        from .dataio import synthetic
+
+        self._synthetic = synthetic
+        self.scene = synthetic.make_corridor_scene(
+            seed=seed, num_frames=num_frames,
+            num_points=int((num_frames + 60) * 60), image_shape=(480, 640))
+        self.K = self.scene.K
+        self.num_frames = self.scene.num_frames
+        self.config = parking_config().replace(
+            image_shape=self.scene.image_shape, bootstrap_method="klt")
+
+    @property
+    def gt_positions(self):
+        return self.scene.poses_WC[:, :3, 3]
+
+    def frames(self, start=0):
+        for i in range(start, self.scene.num_frames):
+            yield i, self._synthetic.render_frame(self.scene, i)
+
+
+def make_sequence(args):
+    if args.dataset != "synthetic":
+        raise NotImplementedError(f"--dataset {args.dataset}: "
+                                  f"{_TODO['datasets']}")
+    return SyntheticSpec(args.seed, args.max_frames or 100)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    for flag, todo in (("plot", args.plot or args.plot_live),
+                       ("posegraph", args.posegraph)):
+        if todo:
+            raise NotImplementedError(f"--{flag}: {_TODO[flag]}")
+    t_start = time.time()
+
+    from .core.camera import Camera
+    from .evalx import ate_rmse
+    from .pipeline import VisualOdometry, run_sequence
+
+    spec = make_sequence(args)
+    cfg = spec.config
+    if args.tuned:
+        from .core.config import tune_for_tpu
+
+        cfg = tune_for_tpu(cfg)
+    if args.bootstrap:
+        cfg = cfg.replace(bootstrap_method=args.bootstrap)
+
+    vo = VisualOdometry(Camera.from_matrix(spec.K), cfg, args.device,
+                        seed=args.seed)
+    print(f"{spec.name}: {spec.num_frames} frames, "
+          f"bootstrap {spec.bootstrap_frames}, klt={vo.klt_backend} "
+          f"bootstrap={cfg.bootstrap_method} device={vo.device}")
+
+    stride = spec.bootstrap_frames[1] - spec.bootstrap_frames[0]
+    result = run_sequence(
+        vo, spec.frames(), seed=args.seed, bootstrap_stride=stride,
+        verbose=not args.quiet, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, resume_from=args.resume,
+        ba_every=args.ba_every, ba_window=args.ba_window)
+
+    est = result.positions
+    print(f"\nVO pipeline executed over {spec.num_frames} frames")
+    print(f"throughput: {result.frames_per_sec:.2f} frames/s "
+          f"(steady state, device-synchronized)")
+    print(f"LOST frames: {result.num_lost()}")
+    gt = spec.gt_positions
+    gt_matched = np.stack([gt[r.frame] for r in result.records])
+    print(f"ATE RMSE (Sim3-aligned): {ate_rmse(est, gt_matched):.3f} m")
+
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            for r in result.records:
+                f.write(json.dumps({
+                    "frame": r.frame,
+                    "position": r.T_WC[:3, 3].tolist(),
+                    "n_inliers": r.n_inliers,
+                    "n_tracked": r.n_tracked,
+                    "status": r.status,
+                    "wall_ms": r.wall_ms,
+                }) + "\n")
+        print(f"metrics written to {args.metrics_json}")
+
+    print(f"Time elapsed: {(time.time() - t_start) / 60:.2f} min")
+    return result
+
+
+if __name__ == "__main__":
+    main()

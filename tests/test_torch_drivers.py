@@ -1,0 +1,410 @@
+"""The port's drivers against the JAX package's, on the CPU: the runner
+(recovery, host-side BA), the block driver and checkpoints.
+
+Scene: the beacon corridor of ``tests/test_pipeline.py`` (seed 3, 20 frames,
+240x320, 0.4 m steps) with its ``small_config`` (``klt.backend="xla"``,
+window 11, 512-slot tables).  The port draws its RANSAC banks through a
+sampler that maps each call's generator back to its (seed, stream) and
+hands it the reference's own draws for that stream
+(``jax.random.fold_in(PRNGKey(seed), stream)``; a step's PnP bank from the
+first half of ``jax.random.split`` of it).
+
+Tolerances:
+  * ``map_scale_from_points`` and ``reanchor_state``: float64 numpy on the
+    same inputs, 1e-6 relative;
+  * ``refine`` (4 Gauss-Newton iterations of Schur BA over the same ring):
+    poses 1e-4, landmarks 2e-3 relative + 1e-3 (float32 sums in another
+    order; a far landmark is weakly held along its ray: measured 3.6e-4
+    relative);
+  * ``run_sequence``: the same statuses and tracked counts per frame; camera
+    positions within 1e-3 of the path length (the trackers agree to ~1e-4 px
+    and their differences compound over the frames; measured 1e-4 of the
+    path); the blackout run through its recovery window only (see its
+    test);
+  * ``run_streaming`` (blocks of 5, recovery and landmark snapshots on):
+    the same frames, block count, recoveries and statuses; tracked counts
+    and positions as ``run_sequence``'s, the blackout run through its
+    recovery window only;
+  * the checkpoint round trip: bit-equal; the step after it as the
+    tracker-parity step of tests/test_torch_klt_xla.py (pose 1e-4).
+
+The port's own drivers against each other (the block driver, streaming,
+resume, the CLI) are in tests/test_torch_streaming.py.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from monocular_visual_odometry_va4mr_tpu.core import config as jconfig
+from monocular_visual_odometry_va4mr_tpu.core.camera import Camera as JCamera
+from monocular_visual_odometry_va4mr_tpu.core.state import (
+    init_state as j_init_state)
+from monocular_visual_odometry_va4mr_tpu.dataio import synthetic as jsyn
+from monocular_visual_odometry_va4mr_tpu.ops import ransac as jransac
+from monocular_visual_odometry_va4mr_tpu.pipeline import ba_refine as jbar
+from monocular_visual_odometry_va4mr_tpu.pipeline import runner as jrunner
+from monocular_visual_odometry_va4mr_tpu.pipeline import scan_driver as jscan
+from monocular_visual_odometry_va4mr_tpu.pipeline.vo import (
+    VisualOdometry as JVO)
+from monocular_visual_odometry_va4mr_torch.core import config as tconfig
+from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+from monocular_visual_odometry_va4mr_torch.core.state import FrameState
+from monocular_visual_odometry_va4mr_torch.dataio import synthetic
+from monocular_visual_odometry_va4mr_torch.pipeline import (
+    ba_refine, checkpoint, runner, scan_driver)
+from monocular_visual_odometry_va4mr_torch.pipeline.vo import VisualOdometry
+
+torch.set_num_threads(1)
+
+SEED = 0
+STRIDE = 2
+BLACKOUT = (8, 9)
+
+
+def small_config(cfg_mod, image_shape=(240, 320)):
+    """tests/test_pipeline.py's small_config, in either package."""
+    return cfg_mod.PipelineConfig(
+        landmarks=cfg_mod.LandmarkConfig(min_dist=0.5, max_dist=120.0,
+                                         min_baseline_angle_deg=1.0,
+                                         min_baseline_frames=2),
+        detector=cfg_mod.DetectorConfig(max_corners=512, quality_level=0.05,
+                                        min_dist=8.0),
+        klt=cfg_mod.KLTConfig(window=11, max_level=3, num_iters=15, eps=0.01,
+                              backend="xla"),
+        pnp=cfg_mod.PnPConfig(iterations=200, reproj_err_px=4.0),
+        essential=cfg_mod.EssentialConfig(iterations=300, threshold_px=1.0),
+        capacity=cfg_mod.CapacityConfig(max_landmarks=512,
+                                        max_candidates=512),
+        image_shape=image_shape, bootstrap_method="klt")
+
+
+class JaxDraws:
+    """The reference's RANSAC draws for the (seed, stream) a generator was
+    seeded from (``runner.frame_generator``)."""
+
+    def __init__(self, seed=SEED):
+        self.key = jax.random.PRNGKey(seed)
+        self.streams = 0
+
+    def __call__(self, generator, valid, n, k):
+        stream = generator.initial_seed() & 0xFFFFFFFF
+        self.streams += 1
+        key = jax.random.fold_in(self.key, stream)
+        if k == 3:  # the step's PnP bank: the first half of split(key)
+            key = jax.random.split(key)[0]
+        idx, ok = jransac.sample_minimal_sets(key, jnp.asarray(valid.numpy()),
+                                              n, k)
+        return (torch.from_numpy(np.asarray(idx)).long(),
+                torch.from_numpy(np.asarray(ok)))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return synthetic.make_corridor_scene(seed=3, num_frames=20,
+                                         num_points=2500,
+                                         image_shape=(240, 320), step=0.4)
+
+
+@pytest.fixture(scope="module")
+def frames(scene):
+    return [synthetic.render_frame(scene, i) for i in range(scene.num_frames)]
+
+
+@pytest.fixture(scope="module")
+def blackout_frames(frames):
+    return [np.zeros_like(f) if i in BLACKOUT else f
+            for i, f in enumerate(frames)]
+
+
+def make_tvo(scene, sampler=None):
+    return VisualOdometry(Camera.from_matrix(scene.K),
+                          small_config(tconfig, scene.image_shape), "cpu",
+                          sampler=sampler)
+
+
+@pytest.fixture(scope="module")
+def reference_runs(scene, frames, blackout_frames):
+    """The JAX runner over the clean scene (host-side BA every 4 frames over
+    6) and over the blackout scene (recovery), one compiled VO."""
+    jvo = JVO(JCamera.from_matrix(scene.K), small_config(jconfig))
+    clean = jrunner.run_sequence(jvo, enumerate(frames),
+                                 bootstrap_stride=STRIDE, ba_every=4,
+                                 ba_window=6)
+    dark = jrunner.run_sequence(jvo, enumerate(blackout_frames),
+                                bootstrap_stride=STRIDE, recover=True,
+                                recover_after=2)
+    return jvo, clean, dark
+
+
+def test_corridor_copy_renders_what_the_reference_renders(scene):
+    jscene = jsyn.make_corridor_scene(seed=3, num_frames=20, num_points=2500,
+                                      image_shape=(240, 320), step=0.4)
+    for i in (0, 11):
+        np.testing.assert_array_equal(synthetic.render_frame(scene, i),
+                                      jsyn.render_frame(jscene, i))
+
+
+def assert_runs_agree(jres, tres, last_frame=None):
+    """Same frames, statuses and tracked counts; positions within 1e-3 of
+    the path length; through ``last_frame`` when given."""
+    jrec = [r for r in jres.records if last_frame is None
+            or r.frame <= last_frame]
+    trec = tres.records[:len(jrec)]
+    assert [r.frame for r in jrec] == [r.frame for r in trec]
+    assert [r.status for r in jrec] == [r.status for r in trec]
+    assert [r.n_tracked for r in jrec] == [r.n_tracked for r in trec]
+    pj = np.stack([r.T_WC[:3, 3] for r in jrec])
+    pt = np.stack([r.T_WC[:3, 3] for r in trec])
+    path = np.sum(np.linalg.norm(np.diff(pj, axis=0), axis=1))
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-3 * path)
+
+
+def test_run_sequence_with_ba_matches_reference(scene, frames,
+                                                reference_runs):
+    _, jres, _ = reference_runs
+    draws = JaxDraws()
+    tres = runner.run_sequence(make_tvo(scene, draws), enumerate(frames),
+                               bootstrap_stride=STRIDE, ba_every=4,
+                               ba_window=6)
+    assert draws.streams == len(frames) - STRIDE  # bootstrap + 17 steps
+    assert tres.num_lost() == 0 and len(tres.records) == len(frames) - STRIDE
+    assert_runs_agree(jres, tres)
+
+
+def test_blackout_recovery_matches_reference(scene, blackout_frames,
+                                             reference_runs):
+    """tests/test_pipeline.py:205 on the port: two blank frames kill every
+    track; the runner re-bootstraps, transports the fresh map into the
+    original world frame and keeps a velocity-consistent scale.
+
+    Both runners agree through the recovery (frame 12) and 3 frames after
+    it.  Beyond that the fresh map is small and PnP-RANSAC sensitive to
+    rounding: at frame 16 one track more or less (113 vs 114) moves the
+    pose by ~0.12 of a ~7 path (the reference's own positions wobble that
+    much there), so the rest is held to the recovery contract only."""
+    _, _, jres = reference_runs
+    tres = runner.run_sequence(make_tvo(scene, JaxDraws()),
+                               enumerate(blackout_frames),
+                               bootstrap_stride=STRIDE, recover=True,
+                               recover_after=2)
+    statuses = [r.status for r in tres.records]
+    assert any(s != 0 for s in statuses), "blackout should cause LOST"
+    assert all(s == 0 for s in statuses[-5:]), statuses
+    pos = tres.positions
+    good = [i for i, s in enumerate(statuses) if s == 0]
+    pre = [i for i in good if tres.records[i].frame < 8]
+    post = [i for i in good if tres.records[i].frame > 11]
+    pre_steps = np.linalg.norm(np.diff(pos[pre], axis=0), axis=1)
+    post_steps = np.linalg.norm(np.diff(pos[post][1:], axis=0), axis=1)
+    ratio = np.median(post_steps) / max(np.median(pre_steps), 1e-9)
+    assert 0.4 < ratio < 2.5, (ratio, pre_steps, post_steps)
+    assert_runs_agree(jres, tres, last_frame=15)
+
+
+def stream_inputs(fr):
+    return ((i, fr[i]) for i in range(STRIDE + 1, len(fr)))
+
+
+STREAM_KW = dict(block=5, recover=True, bootstrap_stride=STRIDE,
+                 emit_landmarks=True)
+
+
+@pytest.fixture(scope="module")
+def reference_streams(frames, blackout_frames, reference_runs):
+    """The JAX block driver over frames 3..19 of the clean and the blackout
+    scene (blocks of 5 with a padded tail, recovery on, landmark snapshots),
+    each from the reference's own bootstrap."""
+    jvo = reference_runs[0]
+    key = jax.random.PRNGKey(SEED)
+    runs = {}
+    for name, fr in (("clean", frames), ("blackout", blackout_frames)):
+        s0 = jvo.bootstrap(fr[0], fr[STRIDE], jax.random.fold_in(key, 0),
+                           intermediate=fr[1:STRIDE])
+        runs[name] = jscan.run_streaming(jvo, s0, stream_inputs(fr), key,
+                                         **STREAM_KW)
+    return runs
+
+
+@pytest.mark.parametrize("name", ["clean", "blackout"])
+def test_run_streaming_matches_reference(name, scene, frames, blackout_frames,
+                                         reference_streams):
+    """The port's block driver against the JAX one: the same frames, block
+    count, recoveries (the candidate re-bootstrap positions, the map-based
+    scale from the landmark snapshots, the streak carried across blocks) and
+    statuses; tracked counts equal and camera positions within 1e-3 of the
+    path length (measured 1e-5 on the clean run).
+
+    The blackout run re-bootstraps at frame 12 in both (map scale 1.007)
+    and agrees to 7.5e-5 of the path through frame 15; from frame 16 the
+    fresh map is small and PnP-RANSAC flips on rounding, as in the runner's
+    blackout test above (measured 1.3e-2 of the path at frame 16 with equal
+    tracks), so the counts and positions are held through frame 15."""
+    fr = frames if name == "clean" else blackout_frames
+    last = len(fr) if name == "clean" else 15
+    _, jout, jids, jinfo = reference_streams[name]
+    draws = JaxDraws()
+    tvo = make_tvo(scene, draws)
+    s0 = tvo.bootstrap(fr[0], fr[STRIDE], intermediate=fr[1:STRIDE],
+                       generator=runner.frame_generator(SEED, 0, "cpu"))
+    final, tout, tids, tinfo = scan_driver.run_streaming(
+        tvo, s0, stream_inputs(fr), SEED, **STREAM_KW)
+    assert tids == jids and tuple(tinfo) == tuple(jinfo)
+    if name == "blackout":
+        assert tinfo.recoveries >= 1 and tinfo.lost > 0
+    else:
+        assert tinfo.recoveries == 0 and tinfo.lost == 0
+    np.testing.assert_array_equal(tout.status, np.asarray(jout.status))
+    k = sum(1 for i in tids if i <= last)
+    np.testing.assert_array_equal(tout.n_tracked[:k],
+                                  np.asarray(jout.n_tracked)[:k])
+    pj = np.stack([-T[:3, :3].T @ T[:3, 3]
+                   for T in np.asarray(jout.T_CW, np.float64)])
+    pt = np.stack([-T[:3, :3].T @ T[:3, 3]
+                   for T in tout.T_CW.astype(np.float64)])
+    path = np.sum(np.linalg.norm(np.diff(pj, axis=0), axis=1))
+    np.testing.assert_allclose(pt[:k], pj[:k], rtol=0, atol=1e-3 * path)
+    np.testing.assert_array_equal(final.T_CW.numpy(), tout.T_CW[-1])
+
+
+def rand_state_pair(rng, K=64, M=64):
+    """The same random state in both packages (a JAX FrameState and the
+    port's, through FrameState.from_numpy)."""
+    cfg = small_config(jconfig).replace(
+        capacity=jconfig.CapacityConfig(max_landmarks=K, max_candidates=M))
+    js = j_init_state(cfg, (jnp.zeros((8, 8)),))
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = rng.normal(size=3)
+    js = js.replace(
+        T_CW=jnp.asarray(T),
+        lm_xyz=jnp.asarray(rng.normal(0, 3, (K, 3)).astype(np.float32)
+                           + np.float32([0, 0, 12])),
+        lm_valid=jnp.asarray(rng.uniform(size=K) < 0.8),
+        lm_T_CW_first=jnp.asarray(np.tile(T, (K, 1, 1))),
+        cand_T_CW_first=jnp.asarray(np.tile(T, (M, 1, 1))))
+    return js, FrameState.from_numpy(js)
+
+
+def test_map_scale_and_reanchor_match_reference(rng):
+    js, ts = rand_state_pair(rng)
+    cam = JCamera.from_matrix(np.array([[200.0, 0, 160], [0, 200.0, 120],
+                                        [0, 0, 1]]))
+    tcam = Camera.from_matrix(np.asarray(cam.matrix()))
+    anchor = np.eye(4)
+    # The old map: the fresh landmarks at 2.5x the scale, in the anchor's
+    # frame, with noise.
+    X_old = 2.5 * np.asarray(js.lm_xyz)[np.asarray(js.lm_valid)]
+    X_old += rng.normal(0, 0.01, X_old.shape)
+    sj = jrunner.map_scale_from_points(X_old, js, cam, anchor)
+    st = runner.map_scale_from_points(X_old, ts, tcam, anchor)
+    assert sj is not None and abs(sj - 2.5) < 0.05
+    assert st == pytest.approx(sj, rel=1e-6)
+    assert runner.map_scale_from_points(X_old[:5], ts, tcam, anchor) is None
+    A = np.eye(4)
+    A[:3, :3] = np.array([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]])
+    A[:3, 3] = [1.0, -2.0, 0.5]
+    rj = jrunner.reanchor_state(js, A, 2.5)
+    rt = runner.reanchor_state(ts, A, 2.5)
+    for name in ("T_CW", "lm_xyz", "lm_T_CW_first", "cand_T_CW_first"):
+        np.testing.assert_allclose(getattr(rt, name).numpy(),
+                                   np.asarray(getattr(rj, name)), rtol=1e-6,
+                                   atol=1e-5)
+
+
+def test_refine_matches_reference(rng):
+    """Host-side windowed BA over the same ring of noisy observations."""
+    W, K = 6, 64
+    cam_K = np.array([[200.0, 0, 160], [0, 200.0, 120], [0, 0, 1]])
+    X = (rng.uniform(-4, 4, (K, 3)) + [0, 0, 14]).astype(np.float32)
+    js, ts = rand_state_pair(rng, K=K)
+    rings = jbar.BARing(window=W), ba_refine.BARing(window=W)
+    for w in range(W):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.05 * w, 0.0, -0.4 * w]
+        Xc = X @ T[:3, :3].T + T[:3, 3]
+        uv = (Xc[:, :2] / Xc[:, 2:] * 200.0 + [160, 120]).astype(np.float32)
+        uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+        Tn = T.copy()
+        Tn[:3, 3] += rng.normal(0, 0.02, 3).astype(np.float32)
+        for ring in rings:
+            ring.poses.append(Tn)
+            ring.obs_uv.append(uv)
+            ring.obs_mask.append(rng.uniform(size=K) < 0.9)
+            ring.obs_gen.append(np.asarray(js.lm_gen))
+    rings[1].obs_mask[:] = [m.copy() for m in rings[0].obs_mask]
+    Xn = (X + rng.normal(0, 0.1, X.shape)).astype(np.float32)
+    js = js.replace(lm_xyz=jnp.asarray(Xn))
+    ts = ts.replace(lm_xyz=torch.from_numpy(Xn))
+    out_j = jbar.refine(js, rings[0], JCamera.from_matrix(cam_K))
+    out_t = ba_refine.refine(ts, rings[1], Camera.from_matrix(cam_K))
+    np.testing.assert_allclose(out_t.T_CW.numpy(), np.asarray(out_j.T_CW),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out_t.lm_xyz.numpy(), np.asarray(out_j.lm_xyz),
+                               rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(np.stack(rings[1].poses),
+                               np.stack(rings[0].poses), rtol=0, atol=1e-4)
+    moved = np.abs(out_t.lm_xyz.numpy() - Xn).max(1) > 0
+    assert moved.sum() > K // 2
+    with pytest.raises(NotImplementedError):
+        ba_refine.refine(ts, rings[1], Camera.from_matrix(cam_K),
+                         mesh=object())
+
+
+def assert_states_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "prev_pyramid":
+            for p, q in zip(x, y):
+                assert torch.equal(p, q)
+        elif f.name == "frame_idx":
+            assert x == y
+        else:
+            assert x.dtype == y.dtype and torch.equal(x, y), f.name
+
+
+def test_checkpoint_round_trip_of_a_reference_state(tmp_path, scene, frames,
+                                                    reference_runs):
+    """A JAX state, carried across through numpy, saved and restored by the
+    port, steps as the reference steps it."""
+    jvo = reference_runs[0]
+    key = jax.random.PRNGKey(SEED)
+    jstate = jvo.bootstrap(frames[0], frames[STRIDE],
+                           jax.random.fold_in(key, 0),
+                           intermediate=frames[1:STRIDE])
+    tstate = FrameState.from_numpy(jstate)
+    records = [runner.FrameRecord(STRIDE, np.eye(4), 10, 12, 0, 1.5)]
+    ring = ba_refine.BARing(window=3)
+    ring.push(tstate)
+    checkpoint.save(str(tmp_path), tstate, 7, records=records, ring=ring)
+    assert checkpoint.latest_frame(str(tmp_path)) == 7
+    restored, at = checkpoint.restore(str(tmp_path), tstate)
+    assert at == 7
+    assert_states_equal(restored, tstate)
+    rec, ring_r, bank = checkpoint.restore_aux(str(tmp_path))
+    assert bank is None and len(rec) == 1
+    assert dataclasses.asdict(rec[0]).keys() == dataclasses.asdict(
+        records[0]).keys()
+    for f in dataclasses.fields(rec[0]):
+        np.testing.assert_array_equal(getattr(rec[0], f.name),
+                                      getattr(records[0], f.name))
+    for a, b in zip((ring_r.poses, ring_r.obs_uv, ring_r.obs_mask,
+                     ring_r.obs_gen),
+                    (ring.poses, ring.obs_uv, ring.obs_mask, ring.obs_gen)):
+        np.testing.assert_array_equal(np.stack(a), np.stack(b))
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.restore(str(tmp_path), tstate.replace(
+            lm_xyz=torch.zeros(3, 3)))
+    with pytest.raises(NotImplementedError):
+        checkpoint.save(str(tmp_path), tstate, 7, bank=object())
+
+    i = STRIDE + 1
+    js = jvo.step(jstate, frames[i], jax.random.fold_in(key, i))
+    ts = make_tvo(scene, JaxDraws()).step(
+        restored, frames[i], generator=runner.frame_generator(SEED, i, "cpu"))
+    assert int(ts.status) == int(js.status) == 0
+    assert int(ts.n_tracked) == int(js.n_tracked)
+    np.testing.assert_allclose(ts.T_CW.numpy(), np.asarray(js.T_CW), rtol=0,
+                               atol=1e-4)

@@ -42,6 +42,7 @@ import torch
 from monocular_visual_odometry_va4mr_tpu.core.camera import Camera as JCamera
 from monocular_visual_odometry_va4mr_tpu.core.config import kitti_tuned_config
 from monocular_visual_odometry_va4mr_tpu.dataio import synthetic
+from monocular_visual_odometry_va4mr_tpu.ops import klt_pallas as jv1
 from monocular_visual_odometry_va4mr_tpu.ops import klt_pallas2 as jk2
 from monocular_visual_odometry_va4mr_tpu.ops import ransac as jransac
 from monocular_visual_odometry_va4mr_tpu.pipeline.vo import (
@@ -70,12 +71,12 @@ LM_TOL_TRACK_DIFF = 0.5
 MASK_AGREE = 0.97
 
 
-def small_config(base):
+def small_config(base, backend="pallas2"):
     cfg = base().replace(image_shape=(96, 160), bootstrap_method="klt")
     return cfg.replace(
         detector=dataclasses.replace(cfg.detector, max_corners=128,
                                      quality_level=0.03),
-        klt=dataclasses.replace(cfg.klt, backend="pallas2"),
+        klt=dataclasses.replace(cfg.klt, backend=backend),
         ba=dataclasses.replace(cfg.ba, window=3, every=2, max_landmarks=64),
         capacity=dataclasses.replace(cfg.capacity, max_landmarks=128,
                                      max_candidates=128),
@@ -87,7 +88,7 @@ class JaxBank:
 
     key = None
 
-    def __call__(self, valid, n, k):
+    def __call__(self, generator, valid, n, k):
         idx, ok = jransac.sample_minimal_sets(
             self.key, jnp.asarray(valid.numpy()), n, k)
         return (torch.from_numpy(np.asarray(idx)).long(),
@@ -103,8 +104,10 @@ def jax_state_dict(s):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs():
+def slice_runs(backend):
+    """Bootstrap + N_STEPS steps in both packages with ``klt.backend =
+    backend``, the port fed the reference's RANSAC draws and started from
+    the reference's bootstrap state."""
     scene = synthetic.make_textured_scene(
         seed=7, num_frames=STRIDE + N_STEPS + 1, image_shape=(96, 160),
         step=1.0)
@@ -112,10 +115,13 @@ def runs():
     key = jax.random.PRNGKey(0)
     keys = [jax.random.fold_in(key, i) for i in range(len(frames))]
 
-    jvo = JVO(JCamera.from_matrix(scene.K), small_config(kitti_tuned_config))
+    jvo = JVO(JCamera.from_matrix(scene.K),
+              small_config(kitti_tuned_config, backend))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jk2, "track_features_pallas2", functools.partial(
             jk2.track_features_pallas2, interpret=True))
+        mp.setattr(jv1, "track_features_pallas", functools.partial(
+            jv1.track_features_pallas, interpret=True))
         mp.setattr(jk2, "track_multilevel", functools.partial(
             jk2.track_multilevel, interpret=True))
         j_boot = jvo.bootstrap(frames[0], frames[STRIDE], keys[0],
@@ -128,7 +134,7 @@ def runs():
 
     bank = JaxBank()
     tvo = VisualOdometry(Camera.from_matrix(scene.K),
-                         small_config(t_kitti_tuned_config), "cpu",
+                         small_config(t_kitti_tuned_config, backend), "cpu",
                          sampler=bank)
     ba_calls = []
     run_ba_branch = tvo._run_ba_branch
@@ -150,6 +156,11 @@ def runs():
     return dict(j_boot=jax_state_dict(j_boot), t_boot=t_boot,
                 j_steps=j_steps, t_steps=[a for a, _ in t_steps],
                 ba_calls=[b for _, b in t_steps])
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return slice_runs("pallas2")
 
 
 def rot_deg(Ta, Tb):
