@@ -15,8 +15,13 @@ exits nonzero:
 2. The packed LK kernel (``klt_lk``) against its plain PyTorch version on
    the card, at the main path's shapes: the full-res 376x1241 plane (N=1024
    features, win 15, 6 iterations), the /4 plane (94x310) and the backward
-   pass (planes swapped, 4 iterations).  Agreement and the median time of 20
-   runs each (CUDA events).
+   pass (planes swapped, 4 iterations).  Agreement; the kernel's
+   ``device_ms``, the device time of one call (calls queued behind a spin
+   kernel, so the wrapper's host work falls outside the CUDA events), and
+   its ``call_ms``, the median of 20 single calls between two events on an
+   idle card, host work included; ``plain_ms``, the plain version's time
+   measured as ``call_ms`` (it waits on the card inside, so no spin can
+   cover its enqueue).
 3. The main path, as ``bench.py`` drives it: the 100-frame textured
    KITTI-geometry scene (seed 11), ``kitti_tuned_config()`` with the KLT
    bootstrap and ``detector.quality_level=0.03`` (``klt.backend="auto"``, i.e.
@@ -24,6 +29,8 @@ exits nonzero:
    per frame.  ``klt_lk`` must have launched 3 times per bootstrap hop plus
    3 times per step.  Health: 0 LOST frames, a finite trajectory, ATE <= 2%
    of the path (``bench.py``'s gate without its reference-CPU term).
+   ``torch.profiler`` traces 8 of the steps (left out of the step times):
+   device time per step, all kernels and ``klt_lk``'s alone.
 4. The block driver on the same path: ``scan_driver.run_streaming`` over
    frames 5..99 uploaded as uint8, blocks of 16 with a padded tail.
    ``klt_lk`` must have launched 3 times per frame; statuses equal to, and
@@ -79,6 +86,9 @@ STREAM_BLOCK = 16  # 95 frames: 5 full blocks and one of 15 + 1 padded
 # Streamed vs step-loop positions, x path length: the same kernels and draws
 # in the same order, so only nondeterministic CUDA scatters may differ.
 STREAM_POS_TOL = 1e-3
+DEVICE_REPS = 50  # kernel calls queued behind one spin (device_time_ms)
+SPIN_CYCLES = 1 << 22  # first spin, ~2 ms at the H100's ~1.98 GHz
+PROFILE_START, PROFILE_STEPS = 40, 8  # main-path steps under torch.profiler
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -143,8 +153,9 @@ def build_kernels():
                     print("  ptxas " + line.strip())
 
 
-def cuda_time_ms(fn, runs=20):
-    """Median over ``runs`` calls, each between two CUDA events."""
+def call_time_ms(fn, runs=20):
+    """Median over ``runs`` calls, each between two CUDA events on an idle
+    card: the wrapper's host work before the launch falls inside."""
     import torch
 
     fn()  # warm
@@ -159,6 +170,34 @@ def cuda_time_ms(fn, runs=20):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_time_ms(fn, reps=DEVICE_REPS):
+    """Device time of one call: ``reps`` calls queued behind a spin kernel
+    that holds the stream while the host enqueues them.  The start event is
+    recorded after the spin and the end event after the last call, so no
+    host work falls inside the window.  The spin doubles until the start
+    event is still pending once everything is queued."""
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        if cycles >= SPIN_CYCLES << 6:
+            raise RuntimeError("the spin never covered the host's enqueue")
+        cycles *= 2
 
 
 # Operation counts of one LK feature at win 15 (225 window pixels), the same
@@ -217,16 +256,23 @@ def kernel_case(name, kernel, plain, args, n, offset_cols, *, num_iters,
     iters = iterations_run(
         lambda k: plain(*args, num_iters=k, **extra), offset_cols, num_iters)
     b_ms, b_by, nbytes, ops = bound_ms(n, iters, in_row_bytes, 5 * 4)
+
+    def run_kernel():
+        kernel(*args, num_iters=num_iters, **extra)
+
+    def run_plain():
+        plain(*args, num_iters=num_iters, **extra)
+
+    dev_ms = device_time_ms(run_kernel)
     res = dict(
         name=name, shape=list(args[0].shape), n=n,
         both_ok=int(both.sum()), ok_agree=float((ok_k == ok_p).float().mean()),
         pos_max=float(d.max()), pos_median=float(d.median()),
         resid_max=float((out_k[both, 3] - out_p[both, 3]).abs().max()),
         iters_mean=float(np.mean(iters)), bytes=nbytes, ops=ops,
-        bound_ms=b_ms, bound_by=b_by,
-        ms=cuda_time_ms(lambda: kernel(*args, num_iters=num_iters, **extra)),
-        plain_ms=cuda_time_ms(
-            lambda: plain(*args, num_iters=num_iters, **extra)))
+        bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
+        bound_share=b_ms / dev_ms, call_ms=call_time_ms(run_kernel),
+        plain_ms=call_time_ms(run_plain))
     print("kernel_vs_plain " + json.dumps(res), flush=True)
     if not (res["both_ok"] > 0.2 * n and res["pos_max"] < POS_TOL_PX
             and res["ok_agree"] >= OK_AGREE):
@@ -268,44 +314,44 @@ def case_planes(pyr_a, pyr_b, pts, prior):
              -prior, 4)]
 
 
-def phase_kernels_lk(inputs):
-    import torch
-
-    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
-
-    pyr_a, pyr_b, pts, valid, prior = inputs
-    extra = dict(win=15, eps=0.01, min_eig_threshold=1e-4, max_residual=20.0)
-    cases = []
-    for name, tmpl, srch, p, pr, iters in case_planes(pyr_a, pyr_b, pts,
-                                                      prior):
-        po, pp = k2._origin_and_phase(p, 15)
-        qo, qp = k2._origin_and_phase(p + pr, 15)
-        feat = torch.cat([po, pp, qo, qp], 1).contiguous()
-        cases.append(kernel_case(
-            name, k2.klt_lk, k2.klt_lk_plain, (tmpl, srch, feat, valid),
-            pts.shape[0], [0, 1], num_iters=iters,
-            in_row_bytes=k2.FEAT_COLS * 4 + 1, extra=extra))
-    return cases
-
-
-def phase_kernels_v1(inputs):
+def kernel_calls(name, inputs):
+    """The main path's three calls of kernel ``name`` on ``inputs``: (case,
+    wrapper, plain version, args, iterations, keyword args, bytes of one
+    input row)."""
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
 
     pyr_a, pyr_b, pts, valid, prior = inputs
-    extra = dict(eps=0.01, min_eig_threshold=1e-4, max_residual=20.0)
-    cases = []
-    for name, tmpl, srch, p, pr, iters in case_planes(pyr_a, pyr_b, pts,
+    gates = dict(eps=0.01, min_eig_threshold=1e-4, max_residual=20.0)
+    calls = []
+    for case, tmpl, srch, p, pr, iters in case_planes(pyr_a, pyr_b, pts,
                                                       prior):
-        q = p + pr
-        meta = torch.stack([p[:, 1], p[:, 0], q[:, 1], q[:, 0],
-                            valid.to(torch.float32)], 1).contiguous()
-        cases.append(kernel_case(
-            name, v1.klt_v1, v1.klt_v1_plain, (tmpl, srch, meta),
-            pts.shape[0], [0, 1], num_iters=iters,
-            in_row_bytes=v1.META_COLS * 4, extra=extra))
-    return cases
+        if name == "klt_lk":
+            po, pp = k2._origin_and_phase(p, 15)
+            qo, qp = k2._origin_and_phase(p + pr, 15)
+            feat = torch.cat([po, pp, qo, qp], 1).contiguous()
+            calls.append((case, k2.klt_lk, k2.klt_lk_plain,
+                          (tmpl, srch, feat, valid), iters,
+                          dict(win=15, **gates), k2.FEAT_COLS * 4 + 1))
+        else:
+            q = p + pr
+            meta = torch.stack([p[:, 1], p[:, 0], q[:, 1], q[:, 0],
+                                valid.to(torch.float32)], 1).contiguous()
+            calls.append((case, v1.klt_v1, v1.klt_v1_plain,
+                          (tmpl, srch, meta), iters, gates,
+                          v1.META_COLS * 4))
+    return calls
+
+
+def phase_kernels(name, inputs):
+    """Kernel ``name`` against its plain version at the main path's three
+    calls."""
+    return [kernel_case(case, kernel, plain, args, args[2].shape[0], [0, 1],
+                        num_iters=iters, in_row_bytes=row_bytes, extra=extra)
+            for case, kernel, plain, args, iters, extra, row_bytes
+            in kernel_calls(name, inputs)]
 
 
 def trajectory_health(scene, frame_ids, est, statuses):
@@ -326,6 +372,24 @@ def healthy(res):
             and res["ate"] <= res["ate_bound"])
 
 
+def device_profile(prof, steps, kernel):
+    """Device time per step from a finished ``torch.profiler`` window: all
+    kernels together and those whose name holds ``kernel`` (ms, calls)."""
+    total_us = kernel_us = 0.0
+    calls = 0
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        total_us += us
+        if kernel in evt.key:
+            kernel_us += us
+            calls += evt.count
+    return dict(steps=steps, device_ms_per_step=total_us / 1e3 / steps,
+                kernel=kernel, kernel_ms_per_step=kernel_us / 1e3 / steps,
+                kernel_calls_per_step=calls / steps,
+                kernel_ms_per_call=kernel_us / 1e3 / calls if calls else None,
+                device_time_seen=total_us > 0)
+
+
 def phase_main_path(scene, frames, vo):
     import torch
 
@@ -343,14 +407,22 @@ def phase_main_path(scene, frames, vo):
     statuses = [int(state.status)]
     poses = [state.T_CW.cpu().numpy()]
     step_ms = []
+    profiled = range(PROFILE_START, PROFILE_START + PROFILE_STEPS)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
     for i in range(b + 1, NUM_FRAMES):
+        if i == profiled.start:
+            prof.start()
         t0 = time.perf_counter()
         state = vo.step(state, dev_frames[i])
         torch.cuda.synchronize()
-        if i >= TIMED_START:
+        if i >= TIMED_START and i not in profiled:
             step_ms.append(1e3 * (time.perf_counter() - t0))
         statuses.append(int(state.status))
         poses.append(state.T_CW.cpu().numpy())
+        if i == profiled[-1]:
+            prof.stop()
     launches = k2.klt_lk.launches
     n_steps = NUM_FRAMES - b - 1
     expected = 3 * b + 3 * n_steps  # 3 per bootstrap hop + 3 per step
@@ -362,7 +434,8 @@ def phase_main_path(scene, frames, vo):
     res.update(ba_triggers=vo.ba_runs, bootstrap_s=boot_s,
                step_ms_median=statistics.median(step_ms),
                step_ms_mean=statistics.fmean(step_ms),
-               launches=launches, launches_expected=expected)
+               launches=launches, launches_expected=expected,
+               profile=device_profile(prof, PROFILE_STEPS, "klt_lk_kernel"))
     print("main_path " + json.dumps(res), flush=True)
     if not healthy(res):
         raise RuntimeError(f"main path unhealthy: {res}")
@@ -548,12 +621,36 @@ def phase_cli():
 
 
 def kernel_entry(name, cases, launches):
+    """The kernel's line: its numbers at full resolution, the device time at
+    every main-path shape beside them.  ``ms`` keeps the meaning it has had
+    since the first kernel line, one call with the host's work included, and
+    equals ``call_ms``; ``device_ms`` is the kernel on the card alone."""
     full = cases[0]
     return dict(name=name, route="cuda", **KERNELS[name], launches=launches,
+                launches_per_step=3,
                 max_abs_err=max(c["pos_max"] for c in cases),
-                ms=full["ms"], plain_ms=full["plain_ms"],
+                ms=full["call_ms"], device_ms=full["device_ms"],
+                call_ms=full["call_ms"], plain_ms=full["plain_ms"],
                 bound_ms=full["bound_ms"], bound_by=full["bound_by"],
-                library_ms=None)
+                bound_share=full["bound_share"], library_ms=None,
+                device_ms_by_shape={c["name"]: c["device_ms"] for c in cases})
+
+
+def main_path_vo(scene):
+    """``bench.py``'s configuration on ``scene``: (config, camera, a
+    ``VisualOdometry`` on the card)."""
+    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+    from monocular_visual_odometry_va4mr_torch.core.config import (
+        kitti_tuned_config)
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    cfg = kitti_tuned_config().replace(image_shape=scene.image_shape,
+                                       bootstrap_method="klt")
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
+                                                   quality_level=0.03))
+    cam = Camera.from_matrix(scene.K)
+    return cfg, cam, VisualOdometry(cam, cfg, DEVICE, seed=0)
 
 
 def main():
@@ -563,12 +660,6 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is false)")
     _import_port()
-    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
-    from monocular_visual_odometry_va4mr_torch.core.config import (
-        kitti_tuned_config)
-    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
-        VisualOdometry)
-
     smi = device_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
@@ -580,18 +671,12 @@ def main():
     scene, frames = render_scene()
     print(f"scene {NUM_FRAMES} frames {IMAGE_SHAPE} rendered in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = kitti_tuned_config().replace(image_shape=scene.image_shape,
-                                       bootstrap_method="klt")
-    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
-                                                   quality_level=0.03))
-    cam = Camera.from_matrix(scene.K)
-    vo = VisualOdometry(cam, cfg, DEVICE, seed=0)
-
+    cfg, cam, vo = main_path_vo(scene)
     inputs = bench_inputs(frames, vo)
-    lk_cases = phase_kernels_lk(inputs)
+    lk_cases = phase_kernels("klt_lk", inputs)
     main_res = phase_main_path(scene, frames, vo)
     phase_stream(scene, frames, vo)
-    v1_cases = phase_kernels_v1(inputs)
+    v1_cases = phase_kernels("klt_v1", inputs)
     phase_cli()
     phase_xla(scene, frames, cfg, cam)
     v1_res = phase_v1_path(scene, frames, cfg, cam)

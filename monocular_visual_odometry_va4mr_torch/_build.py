@@ -37,11 +37,12 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str):
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+def build(name: str, src: Path = None):
+    """Compile ``csrc/<name>.cu`` (or the source ``src``) unless an
+    up-to-date library exists.
 
     Returns (library path, compiler log, seconds spent compiling)."""
-    src = CSRC / f"{name}.cu"
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
@@ -65,3 +66,19 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, loaded once per process."""
     lib, _, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def bind(lib: ctypes.CDLL, name: str, argtypes: tuple):
+    """``<name>_launch`` of ``lib`` with its ctypes signature set: it returns
+    the launch's ``cudaError_t`` as a C int."""
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, argtypes: tuple):
+    """The entry point of ``csrc/<name>.cu``, built, loaded and bound once
+    per process."""
+    return bind(load(name), name, argtypes)

@@ -260,13 +260,14 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
                        1)
 
 
-def _lib():
-    lib = _build.load("klt_v1")
-    fn = lib.klt_v1_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i, i, i, i, p, i, i, f, f, f, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# klt_v1_launch(tmpl, srch, H, W, Hp, Wp, meta, n, num_iters, eps2,
+#               min_eig_thr, max_resid, out, stream)
+LAUNCH_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P)
+
+
+def _entry():
+    return _build.entry("klt_v1", LAUNCH_ARGTYPES)
 
 
 def klt_v1(tmpl: torch.Tensor, srch: torch.Tensor, meta: torch.Tensor, *,
@@ -313,9 +314,9 @@ def klt_v1(tmpl: torch.Tensor, srch: torch.Tensor, meta: torch.Tensor, *,
     out = torch.empty((N, OUT_COLS), dtype=torch.float32, device=tmpl.device)
     with torch.cuda.device(tmpl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(tmpl.data_ptr(), srch.data_ptr(), H, W, Hp, Wp,
-                     meta.data_ptr(), N, num_iters, eps * eps,
-                     min_eig_threshold, max_residual, out.data_ptr(), stream)
+        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), H, W, Hp, Wp,
+                       meta.data_ptr(), N, num_iters, eps * eps,
+                       min_eig_threshold, max_residual, out.data_ptr(), stream)
     klt_v1.launches += 1
     if err != 0:
         raise RuntimeError(f"klt_v1 kernel launch failed: CUDA error {err}")

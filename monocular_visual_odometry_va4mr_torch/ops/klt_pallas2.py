@@ -78,13 +78,14 @@ def klt_lk_plain(tmpl, srch, feat, valid, *, win, num_iters, eps,
     return torch.stack([gx, gy, ok.to(torch.float32), resid, min_eig], 1)
 
 
-def _lib():
-    lib = _build.load("klt_lk")
-    fn = lib.klt_lk_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i, i, p, p, i, i, i, f, f, f, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# klt_lk_launch(tmpl, srch, H, W, feat, valid, n, win, num_iters, eps2,
+#               min_eig_thr, max_resid, out, stream)
+LAUNCH_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P)
+
+
+def _entry():
+    return _build.entry("klt_lk", LAUNCH_ARGTYPES)
 
 
 def klt_lk(tmpl: torch.Tensor, srch: torch.Tensor, feat: torch.Tensor,
@@ -133,9 +134,9 @@ def klt_lk(tmpl: torch.Tensor, srch: torch.Tensor, feat: torch.Tensor,
     out = torch.empty((N, OUT_COLS), dtype=torch.float32, device=tmpl.device)
     with torch.cuda.device(tmpl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(tmpl.data_ptr(), srch.data_ptr(), H, W, feat.data_ptr(),
-                     valid.data_ptr(), N, win, num_iters, eps * eps,
-                     min_eig_threshold, max_residual, out.data_ptr(), stream)
+        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), H, W, feat.data_ptr(),
+                       valid.data_ptr(), N, win, num_iters, eps * eps,
+                       min_eig_threshold, max_residual, out.data_ptr(), stream)
     klt_lk.launches += 1
     if err != 0:
         raise RuntimeError(f"klt_lk kernel launch failed: CUDA error {err}")

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``monocular_visual_odometry_va4mr_torch``
-and not ``chip_smoke.py`` imports ``jax`` or the JAX package.  The check
-reads the source text with ``ast``; it imports nothing."""
+and neither ``chip_smoke.py`` nor ``kernel_ab.py`` imports ``jax`` or the JAX
+package.  The check reads the source text with ``ast``; it imports
+nothing."""
 import ast
 import pathlib
 
@@ -10,7 +11,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "monocular_visual_odometry_va4mr_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax",
              "monocular_visual_odometry_va4mr_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "kernel_ab.py"]
 
 
 def imported_modules(path):
@@ -29,7 +31,8 @@ def imported_modules(path):
 
 def test_sources_are_found():
     names = {p.name for p in SOURCES}
-    assert {"vo.py", "runner.py", "klt_pallas.py", "chip_smoke.py"} <= names
+    assert {"vo.py", "runner.py", "klt_pallas.py", "chip_smoke.py",
+            "kernel_ab.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

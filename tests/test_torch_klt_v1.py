@@ -294,3 +294,30 @@ def test_kernel_wrapper_checks_its_inputs():
     before = tv1.klt_v1.launches
     out = tv1.klt_v1(img, img, meta, **kw)  # CPU: the plain version
     assert out.shape == (8, tv1.OUT_COLS) and tv1.klt_v1.launches == before
+
+
+@pytest.mark.parametrize("path,left,clipped", [
+    ("sideways_20_px_a_round", 2, False),
+    ("sideways_3_px_a_round", 1, False),
+    ("one_12_px_step_down", 1, False),
+    ("up_20_px_a_round_into_the_slab_clip", 1, True)])
+def test_search_boxes_follow_the_kernel_staging(path, left, clipped):
+    """Hand-made paths of offsets through ``kernel_ab.search_boxes``, the
+    replay of ``csrc/klt_v1.cu``'s staging: the first box reaches +-8 px,
+    the wide box staged on leaving it 40 px ahead of the window."""
+    import kernel_ab
+
+    H, W = 376, 1241
+    p = torch.tensor([[200.5, 600.5]])  # [y, x]
+    meta = torch.cat([p, p, torch.ones(1, 1)], 1)
+    k = torch.arange(7.0)
+    zero = torch.zeros(7)
+    g = {"sideways_20_px_a_round": torch.stack([20 * k, zero], 1),
+         "sideways_3_px_a_round": torch.stack([3 * k, zero], 1),
+         "one_12_px_step_down": torch.stack([zero, 12.0 * (k > 0)], 1),
+         "up_20_px_a_round_into_the_slab_clip": torch.stack([zero, -20 * k],
+                                                            1)}[path]
+    got_left, got_clipped = kernel_ab.search_boxes(
+        meta, [g[i:i + 1] for i in range(7)], H, W)
+    assert got_left.tolist() == [left]
+    assert got_clipped.tolist() == [clipped]
