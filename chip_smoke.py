@@ -49,10 +49,41 @@ exits nonzero:
    ``klt.backend="pallas"``, stride 4, recovery on.  ``klt_v1`` must have
    launched 3 times per bootstrap hop (re-bootstraps included) plus 3 times
    per step, ``klt_lk`` never; the health gate of phase 3.
+A. The SIFT bootstrap: ``runner.run_sequence`` over the same 100 frames with
+   ``kitti_tuned_config()``'s own ``bootstrap_method="sift"``, stride 4,
+   recovery on, ``pallas2``.  ``klt_lk`` 3 launches per step (a SIFT
+   bootstrap tracks nothing); the health gate of phase 3.  Also
+   ``detect_and_compute`` at full resolution: host ms per call after a
+   sync, device ms and kernel launches per call from ``torch.profiler``,
+   valid features and ratio matches of the bootstrap pair, the share of
+   keypoints whose orientation differs from the same call on the CPU (the
+   histogram's atomic adds reorder sums), and the bootstrap's landmarks.
+B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
+   frames, 1.25 laps of an 81 m circle, KITTI-05 K) at 376x1241,
+   ``kitti_tuned_config()`` with the KLT bootstrap (stride 8) and in-step
+   BA off, streamed as uint8 by ``scan_driver.run_streaming`` (blocks of
+   64, landmark snapshots, recovery) through ``keep_every``; then
+   ``bank_from_stream`` (512 SIFT features a keyframe) and
+   ``refine_stream_trajectory(method="sim3")``.  Gates: ``klt_lk`` 3
+   launches per step run plus 3 per bootstrap hop (re-bootstraps and the
+   re-run of a block's tail after a recovery included); LOST <= 2% of the
+   frames; a finite trajectory; >= 70 keyframes; >= 2 verified loop edges
+   between keyframes >= 400 frames apart; a finite refinement.  Then
+   ``tests/test_posegraph_pipeline.py``'s scale-drift test at this width: a
+   compounding drift of 1.004 a frame injected into the trajectory and the
+   bank (``T_CW``, ``lm_z``); the Sim(3) refinement's ATE must be below 0.85
+   of the drifted ATE (the SE(3) one is printed).  The same stream on
+   float32 frames is run for its ATE.
+Phase 4 also streams the float32 frames and steps them in a loop with the
+same generators, for the four ATEs of {block driver, step loop} x {uint8,
+float32}; phase 6 runs both CLI calls with ``--posegraph`` (the keyframe
+bank goes through the checkpoint) and the resumed run's refined-or-None
+outcome must equal the uninterrupted one's.
 
-The last lines are a JSON object describing the kernels, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Without a card, or
-outside a checkout, it exits nonzero and prints no result.
+Every phase prints its wall time.  The last lines are a JSON object
+describing the kernels, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Without a card, or outside a checkout, it exits
+nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -93,6 +124,20 @@ PROFILE_START, PROFILE_STEPS = 40, 8  # main-path steps under torch.profiler
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# Phase B: the loop stream with the pose graph.
+LOOP_FRAMES = 640
+LOOP_LAPS = 1.25
+LOOP_STRIDE = 8
+LOOP_BLOCK = 64
+LOOP_EVERY = 8  # keyframe period
+LOOP_FEATURES = 512  # SIFT features per keyframe
+LOOP_MIN_KEYFRAMES = 70
+LOOP_MIN_EDGES = 2
+LOOP_MIN_GAP = 400  # frames between the keyframes of a counted loop edge
+LOOP_LOST_FRAC = 0.02
+SCALE_DRIFT = 1.004  # per frame: x12.4 over the stream
+DRIFT_GAIN = 0.85  # the Sim(3) ATE must be below this share of the drifted
+FLIP_RAD = 0.1  # an orientation this far from the CPU's has flipped
 PKG = "monocular_visual_odometry_va4mr_torch"
 DEVICE = "cuda"
 KERNELS = {
@@ -118,16 +163,20 @@ def _render(args):
     return scene.render(i)
 
 
+def render_frames(scene, n):
+    """Frames 0..n-1 of ``scene``, rendered by a spawn pool."""
+    workers = max(1, min(8, os.cpu_count() or 1))
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        return pool.map(_render, [(scene, i) for i in range(n)])
+
+
 def render_scene():
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
 
     scene = synthetic.make_textured_scene(
         seed=SEED, num_frames=NUM_FRAMES, image_shape=IMAGE_SHAPE, step=1.0)
-    workers = max(1, min(8, os.cpu_count() or 1))
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers) as pool:
-        frames = pool.map(_render, [(scene, i) for i in range(NUM_FRAMES)])
-    return scene, frames
+    return scene, render_frames(scene, NUM_FRAMES)
 
 
 def device_line():
@@ -442,10 +491,25 @@ def phase_main_path(scene, frames, vo):
     return res
 
 
+def pose_WC(T_CW):
+    """(4, 4) T_WC of a T_CW pose."""
+    T = np.eye(4)
+    T[:3, :3] = T_CW[:3, :3].T
+    T[:3, 3] = -T_CW[:3, :3].T @ T_CW[:3, 3]
+    return T
+
+
+def positions_of(Ts):
+    """Camera positions of (F, 4, 4) T_CW poses."""
+    return np.stack([-T[:3, :3].T @ T[:3, 3]
+                     for T in np.asarray(Ts, np.float64)])
+
+
 def phase_stream(scene, frames, vo):
     """``scan_driver.run_streaming`` over the main path's frames uploaded as
     uint8, in blocks with a padded tail, against a step loop over the same
-    frames with the same per-frame generators."""
+    frames with the same per-frame generators; then both again on the
+    float32 frames, for the four ATEs."""
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
@@ -455,9 +519,22 @@ def phase_stream(scene, frames, vo):
 
     b = BOOTSTRAP_STRIDE
     u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames]
-    state0 = vo.bootstrap(u8[0], u8[b], intermediate=u8[1:b],
-                          generator=runner.frame_generator(0, 0, vo.device))
     ids = list(range(b + 1, NUM_FRAMES))
+
+    def start(fr):
+        return vo.bootstrap(fr[0], fr[b], intermediate=fr[1:b],
+                            generator=runner.frame_generator(0, 0, vo.device))
+
+    def loop(state, fr):
+        Ts, sts = [], []
+        for i in ids:
+            state = vo.step(state, fr[i],
+                            generator=runner.frame_generator(0, i, vo.device))
+            Ts.append(state.T_CW.cpu().numpy())
+            sts.append(int(state.status))
+        return Ts, sts
+
+    state0 = start(u8)
     torch.cuda.synchronize()
     k2.klt_lk.launches = 0
     v1.klt_v1.launches = 0
@@ -467,26 +544,37 @@ def phase_stream(scene, frames, vo):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(klt_lk=k2.klt_lk.launches, klt_v1=v1.klt_v1.launches)
-    state, loop_T, loop_status = state0, [], []
-    for i in ids:
-        state = vo.step(state, u8[i],
-                        generator=runner.frame_generator(0, i, vo.device))
-        loop_T.append(state.T_CW.cpu().numpy())
-        loop_status.append(int(state.status))
+    loop_T, loop_status = loop(state0, u8)
 
-    def positions(Ts):
-        return np.stack([-T[:3, :3].T @ T[:3, 3]
-                         for T in np.asarray(Ts, np.float64)])
-
-    est = positions([state0.T_CW.cpu().numpy()] + list(outs.T_CW))
+    est = positions_of([state0.T_CW.cpu().numpy()] + list(outs.T_CW))
     res = trajectory_health(scene, [b] + fids,
                             est, [int(state0.status)] + list(outs.status))
-    diff = float(np.abs(positions(outs.T_CW) - positions(loop_T)).max())
+    diff = float(np.abs(positions_of(outs.T_CW)
+                        - positions_of(loop_T)).max())
     res.update(blocks=info.blocks, block=STREAM_BLOCK, wall_s=wall_s,
                ms_per_frame=1e3 * wall_s / len(ids), launches=launches,
                launches_expected=3 * len(ids), loop_pos_diff=diff,
                loop_tol=STREAM_POS_TOL * res["path"],
                statuses_equal=list(outs.status) == loop_status)
+
+    # The same frames as float32, the same generators: what rounding the
+    # frames to uint8 does, apart from the draws.
+    state0f = start(frames)
+    _, outs_f, _, _ = scan_driver.run_streaming(
+        vo, state0f, ((i, frames[i]) for i in ids), 0, block=STREAM_BLOCK)
+    loop_Tf, loop_status_f = loop(state0f, frames)
+
+    def ate(s0, Ts, sts):
+        return trajectory_health(scene, [b] + ids,
+                                 positions_of([s0.T_CW.cpu().numpy()]
+                                              + list(Ts)),
+                                 [int(s0.status)] + list(sts))
+
+    four = dict(block_uint8=res, loop_uint8=ate(state0, loop_T, loop_status),
+                block_float32=ate(state0f, outs_f.T_CW, outs_f.status),
+                loop_float32=ate(state0f, loop_Tf, loop_status_f))
+    res["ates"] = {k: dict(ate=v["ate"], lost=v["lost"])
+                   for k, v in four.items()}
     print("stream_path " + json.dumps(res), flush=True)
     if (fids != ids or launches["klt_lk"] != 3 * len(ids)
             or launches["klt_v1"]):
@@ -500,18 +588,42 @@ def phase_stream(scene, frames, vo):
 
 
 class CountingBootstrap:
-    """Wraps ``vo.bootstrap`` to count its calls and KLT hops."""
+    """Wraps ``vo.bootstrap`` to count its calls, KLT hops and landmarks."""
 
     def __init__(self, vo):
         self.inner = vo.bootstrap
-        self.calls = []  # (hops, status) per call
+        self.sift = vo.config.bootstrap_method == "sift"
+        self.calls = []  # (KLT hops, status, landmarks) per call
         vo.bootstrap = self
 
     def __call__(self, img0, img1, intermediate=(), generator=None):
         state = self.inner(img0, img1, intermediate=intermediate,
                            generator=generator)
-        self.calls.append((len(intermediate) + 1, int(state.status)))
+        hops = 0 if self.sift else len(intermediate) + 1
+        self.calls.append((hops, int(state.status),
+                           int(state.lm_valid.sum())))
         return state
+
+    @property
+    def hops(self):
+        return sum(h for h, _, _ in self.calls)
+
+    @property
+    def recoveries(self):
+        return sum(1 for _, s, _ in self.calls[1:] if s == 0)
+
+
+class CountingStep:
+    """Wraps ``vo.step`` to count the steps run."""
+
+    def __init__(self, vo):
+        self.inner = vo.step
+        self.calls = 0
+        vo.step = self
+
+    def __call__(self, state, image, generator=None):
+        self.calls += 1
+        return self.inner(state, image, generator=generator)
 
 
 def run_path(scene, frames, vo, num_frames):
@@ -534,12 +646,11 @@ def run_path(scene, frames, vo, num_frames):
     res = trajectory_health(scene, [r.frame for r in recs], result.positions,
                             [r.status for r in recs])
     step_ms = [r.wall_ms for r in recs[1:] if r.frame >= TIMED_START]
-    hops = sum(h for h, _ in boots.calls)
     res.update(
         backend=vo.klt_backend, wall_s=wall_s, launches=counts,
-        launches_expected=3 * hops + 3 * (len(recs) - 1),
-        bootstrap_calls=len(boots.calls),
-        recoveries=sum(1 for _, s in boots.calls[1:] if s == 0),
+        launches_expected=3 * boots.hops + 3 * (len(recs) - 1),
+        bootstrap_calls=len(boots.calls), recoveries=boots.recoveries,
+        bootstrap_landmarks=boots.calls[0][2],
         step_ms_median=statistics.median(step_ms),
         step_ms_p10_p90=[float(np.percentile(step_ms, 10)),
                          float(np.percentile(step_ms, 90))])
@@ -580,13 +691,14 @@ def phase_v1_path(scene, frames, cfg, cam):
 
 
 def phase_cli():
-    """The CLI in a subprocess on the card, then resumed from its
-    checkpoint; the two final positions must agree."""
+    """The CLI with the pose graph in a subprocess on the card, then resumed
+    from its checkpoint (keyframe bank included); the two final positions
+    and refined-or-None outcomes must agree."""
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         base = [sys.executable, "-m", f"{PKG}.run", "--dataset", "synthetic",
                 "--max-frames", str(CLI_FRAMES), "--ba-every", "8", "--quiet",
-                "--device", DEVICE]
+                "--posegraph", "--device", DEVICE]
         runs = {}
         for name, extra in (
                 ("full", ["--checkpoint-dir", ckpt, "--checkpoint-every",
@@ -611,12 +723,329 @@ def phase_cli():
     pos_r = np.array([r["position"] for r in resumed])
     path = float(np.sum(np.linalg.norm(np.diff(pos_f, axis=0), axis=1)))
     diff = float(np.abs(pos_f[-1] - pos_r[-1]).max())
+    ref_f, ref_r = (full[-1]["refined_position"],
+                    resumed[-1]["refined_position"])
+    same_outcome = (ref_f is None) == (ref_r is None)
+    ref_diff = (float(np.abs(np.subtract(ref_f, ref_r)).max())
+                if same_outcome and ref_f is not None else None)
     res = dict(frames=len(full), resumed_frames=len(resumed),
                lost=sum(r["status"] != 0 for r in full), path=path,
-               final_pos_diff=diff, tol=CLI_RESUME_TOL * path)
+               final_pos_diff=diff, tol=CLI_RESUME_TOL * path,
+               refined=ref_f is not None, refined_same_outcome=same_outcome,
+               refined_final_diff=ref_diff)
     print("cli_resume " + json.dumps(res), flush=True)
-    if len(full) != len(resumed) or not diff <= CLI_RESUME_TOL * path:
+    if (len(full) != len(resumed) or not diff <= CLI_RESUME_TOL * path
+            or not same_outcome
+            or (ref_diff is not None and not ref_diff <= CLI_RESUME_TOL
+                * path)):
         raise RuntimeError(f"resumed run differs from the full one: {res}")
+    return res
+
+
+def pair_keypoints(a, b):
+    """Valid keypoints of SiftFeatures ``a`` paired with ``b``'s (CPU
+    tensors): by position within 1e-2 px, then nearest orientation.
+    Returns (paired mask, partner index, position error, orientation error)
+    over ``a``'s valid rows."""
+    import torch
+
+    av, bv = a.valid.cpu(), b.valid.cpu()
+    d = (a.uv.cpu()[av][:, None] - b.uv.cpu()[bv][None]).abs().amax(-1)
+    do = torch.remainder(a.orientation.cpu()[av][:, None]
+                         - b.orientation.cpu()[bv][None] + np.pi,
+                         2 * np.pi) - np.pi
+    best, nn = torch.where(d < 1e-2, do.abs(), torch.inf).min(1)
+    return torch.isfinite(best), nn, d[torch.arange(len(nn)), nn], best
+
+
+def profile_calls(fn, reps=3):
+    """Device ms and kernel launches per call of ``fn`` from
+    ``torch.profiler`` (every device event: kernels, copies, fills)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
+            len(dev) / reps)
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn`` with a device sync after each call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def sift_config(scene):
+    """``kitti_tuned_config()`` with its own SIFT bootstrap (phase A)."""
+    from monocular_visual_odometry_va4mr_torch.core.config import (
+        kitti_tuned_config)
+
+    cfg = kitti_tuned_config().replace(image_shape=scene.image_shape)
+    if cfg.bootstrap_method != "sift":
+        raise RuntimeError("kitti_tuned_config no longer bootstraps on SIFT")
+    return cfg.replace(detector=dataclasses.replace(cfg.detector,
+                                                    quality_level=0.03))
+
+
+def phase_sift(scene, frames, cam):
+    """Phase A: ``detect_and_compute`` at full resolution, then the SIFT
+    bootstrap through the runner."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import match, sift
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    cfg = sift_config(scene)
+    sc = cfg.sift
+    kw = dict(max_features=cfg.capacity.max_candidates,
+              num_octaves=sc.num_octaves,
+              scales_per_octave=sc.scales_per_octave,
+              contrast_threshold=sc.contrast_threshold,
+              edge_threshold=sc.edge_threshold, sigma=sc.sigma,
+              first_octave=sc.first_octave)
+    img0 = torch.as_tensor(frames[0]).to(DEVICE)
+    img1 = torch.as_tensor(frames[BOOTSTRAP_STRIDE]).to(DEVICE)
+    f0 = sift.detect_and_compute(img0, **kw)
+    f1 = sift.detect_and_compute(img1, **kw)
+    _, ok = match.match_ratio(f0.desc, f0.valid, f1.desc, f1.valid,
+                              ratio=sc.ratio)
+    dev_ms, launches = profile_calls(
+        lambda: sift.detect_and_compute(img0, **kw))
+    paired, _, dpos, dori = pair_keypoints(
+        f0, sift.detect_and_compute(torch.as_tensor(frames[0]), **kw))
+    sift_res = dict(
+        shape=list(IMAGE_SHAPE), max_features=kw["max_features"],
+        host_ms=host_ms(lambda: sift.detect_and_compute(img0, **kw)),
+        device_ms=dev_ms, launches=launches,
+        valid=[int(f0.valid.sum()), int(f1.valid.sum())],
+        ratio_matches=int(ok.sum()),
+        cpu_pairs=int(paired.sum()), cpu_pos_max=float(dpos[paired].max()),
+        orientation_flip_share=float((dori[paired] > FLIP_RAD)
+                                     .float().mean()))
+    print("sift " + json.dumps(sift_res), flush=True)
+
+    vo = VisualOdometry(cam, cfg, DEVICE, seed=0)
+    res = run_path(scene, frames, vo, NUM_FRAMES)
+    print("sift_path " + json.dumps(res), flush=True)
+    res["sift"] = sift_res
+    if res["launches"]["klt_lk"] != res["launches_expected"]:
+        raise RuntimeError(f"klt_lk launched {res['launches']['klt_lk']} "
+                           f"times, expected {res['launches_expected']}")
+    if not healthy(res):
+        raise RuntimeError(f"SIFT bootstrap path unhealthy: {res}")
+    return res
+
+
+class Timed:
+    """Replaces ``module.name`` with a wrapper that records each call's
+    result and wall time (after a device sync) until ``restore``."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.results, self.seconds = [], []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.results.append(out)
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.inner)
+
+
+def drifted_copies(records, bank, drift):
+    """``tests/test_posegraph_pipeline.py``'s scale-drift injection: each
+    record's motion from the previous one scaled by drift^n, the keyframes'
+    poses and map depths drifted with the records they sit on."""
+    import copy
+
+    out = copy.deepcopy(records)
+    prev = records[0].T_WC
+    scales = [1.0]
+    for n in range(1, len(records)):
+        rel = np.linalg.inv(prev) @ records[n].T_WC
+        prev = records[n].T_WC
+        scales.append(scales[-1] * drift)
+        rel[:3, 3] *= scales[-1]
+        out[n].T_WC = out[n - 1].T_WC @ rel
+    dbank = copy.copy(bank)
+    dbank.keyframes = []
+    for k in bank.keyframes:
+        T_WC = out[k.record_idx].T_WC
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = T_WC[:3, :3].T
+        T[:3, 3] = -T_WC[:3, :3].T @ T_WC[:3, 3]
+        s = scales[k.record_idx]
+        dbank.keyframes.append(dataclasses.replace(
+            k, T_CW=T, lm_z=k.lm_z * s, med_depth=k.med_depth * s))
+    return out, dbank
+
+
+def loop_vo(scene):
+    """Phase B's VO: ``kitti_tuned_config()`` with the KLT bootstrap and
+    in-step BA off (``tools/bench_stream_2761.py``'s stream at this
+    length)."""
+    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+    from monocular_visual_odometry_va4mr_torch.core.config import (
+        kitti_tuned_config)
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    cfg = kitti_tuned_config().replace(image_shape=scene.image_shape,
+                                       bootstrap_method="klt")
+    cfg = cfg.replace(
+        detector=dataclasses.replace(cfg.detector, quality_level=0.03),
+        ba=dataclasses.replace(cfg.ba, every=0))
+    return VisualOdometry(Camera.from_matrix(scene.K), cfg, DEVICE, seed=0)
+
+
+def phase_loop():
+    """Phase B: the loop stream, its keyframe bank and the Sim(3) pose
+    graph, then the injected scale drift."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.backend import posegraph_sim3
+    from monocular_visual_odometry_va4mr_torch.dataio import synthetic
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+    from monocular_visual_odometry_va4mr_torch.pipeline import (
+        posegraph_runner as pr, runner, scan_driver)
+
+    t0 = time.perf_counter()
+    scene = synthetic.make_loop_scene(seed=SEED, num_frames=LOOP_FRAMES,
+                                      laps=LOOP_LAPS, image_shape=IMAGE_SHAPE)
+    frames = render_frames(scene, LOOP_FRAMES)
+    render_s = time.perf_counter() - t0
+    u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames]
+    vo = loop_vo(scene)
+    b = LOOP_STRIDE
+    ids = list(range(b + 1, LOOP_FRAMES))
+
+    def stream(fr, store=None):
+        s0 = vo.bootstrap(fr[0], fr[b], intermediate=fr[1:b],
+                          generator=runner.frame_generator(0, 0, vo.device))
+        src = ((i, fr[i]) for i in ids)
+        if store is not None:
+            src = pr.keep_every(src, LOOP_EVERY, store)
+        return s0, scan_driver.run_streaming(
+            vo, s0, src, 0, block=LOOP_BLOCK, emit_landmarks=True,
+            recover=True, bootstrap_stride=b)
+
+    boots, steps = CountingBootstrap(vo), CountingStep(vo)
+    kf_images = {}
+    torch.cuda.synchronize()
+    k2.klt_lk.launches = 0
+    t0 = time.perf_counter()
+    state0, (_, outs, fids, info) = stream(u8, kf_images)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = k2.klt_lk.launches
+    expected = 3 * steps.calls + 3 * boots.hops
+    res = trajectory_health(scene, fids, positions_of(outs.T_CW),
+                            list(outs.status))
+    res.update(render_s=render_s, stream_s=stream_s,
+               fps=len(fids) / stream_s, steps_run=steps.calls,
+               bootstrap_calls=len(boots.calls), recoveries=info.recoveries,
+               launches=launches, launches_expected=expected)
+    print("loop_stream " + json.dumps(res), flush=True)
+    if fids != ids or launches != expected:
+        raise RuntimeError(f"loop stream ran other frames or launches: {res}")
+    if not (res["finite"] and res["lost"] <= LOOP_LOST_FRAC * len(fids)):
+        raise RuntimeError(f"loop stream unhealthy: {res}")
+
+    t0 = time.perf_counter()
+    bank = pr.bank_from_stream(vo, outs, fids, kf_images, every=LOOP_EVERY,
+                               max_features=LOOP_FEATURES)
+    bank_s = time.perf_counter() - t0
+    kfs = bank.keyframes
+    cands = pr.retrieve_candidates(bank)
+    loops_t = Timed(pr, "detect_loops")
+    solve_t = Timed(posegraph_sim3, "optimize")
+    prune_t = Timed(posegraph_sim3, "optimize_consistent")
+    try:
+        t0 = time.perf_counter()
+        refined = pr.refine_stream_trajectory(outs, fids, bank,
+                                              method="sim3", verbose=True)
+        refine_s = time.perf_counter() - t0
+    finally:
+        for t in (loops_t, solve_t, prune_t):
+            t.restore()
+    loops = loops_t.results[0]
+    far = [(kfs[a].frame, kfs[b_].frame) for a, b_, *_ in loops
+           if kfs[b_].frame - kfs[a].frame >= LOOP_MIN_GAP]
+    gt = scene.poses_WC[fids, :3, 3]
+    from monocular_visual_odometry_va4mr_torch.evalx import ate
+
+    ok_ref = refined is not None and bool(np.all(np.isfinite(refined)))
+    n_solves = len(solve_t.seconds)
+    nodes = len(kfs)
+    pg = dict(
+        keyframes=nodes, bank_s=bank_s,
+        sift_ms_per_keyframe=1e3 * bank_s / max(len(kfs), 1),
+        candidates=len(cands), verified=len(loops),
+        verified_far=len(far), far_pairs=far[:8],
+        dropped=[int(d) for d in prune_t.results[0][2]]
+        if prune_t.results else None,
+        verify_s=loops_t.seconds[0],
+        verify_ms_per_chunk=1e3 * loops_t.seconds[0] / max(
+            1, -(-len(cands) // pr.VERIFY_CHUNK)),
+        solves=n_solves, solve_s=sum(solve_t.seconds),
+        gn_ms_per_iteration=1e3 * sum(solve_t.seconds) / max(
+            1, sum(len(costs) for _, costs in solve_t.results)),
+        refine_s=refine_s, ate_raw=res["ate"],
+        ate_refined=float(ate.ate_rmse(refined, gt)) if ok_ref else None)
+    print("loop_posegraph " + json.dumps(pg), flush=True)
+    if not (len(kfs) >= LOOP_MIN_KEYFRAMES and len(far) >= LOOP_MIN_EDGES
+            and ok_ref):
+        raise RuntimeError(f"loop pose graph failed its gates: {pg}")
+
+    records = [runner.FrameRecord(f, pose_WC(T), 0, 0, 0, 0.0)
+               for f, T in zip(fids, outs.T_CW)]
+    d_records, d_bank = drifted_copies(records, bank, SCALE_DRIFT)
+    est_d = np.stack([r.T_WC[:3, 3] for r in d_records])
+    drift = dict(per_frame=SCALE_DRIFT,
+                 total=SCALE_DRIFT ** (len(records) - 1),
+                 ate_drifted=float(ate.ate_rmse(est_d, gt)))
+    for method in ("sim3", "se3"):
+        r = pr.refine_trajectory(d_records, d_bank, method=method)
+        drift[f"ate_{method}"] = (float(ate.ate_rmse(r, gt))
+                                  if r is not None else None)
+    print("loop_drift " + json.dumps(drift), flush=True)
+    if not (drift["ate_sim3"] is not None and drift["ate_sim3"]
+            < DRIFT_GAIN * drift["ate_drifted"]):
+        raise RuntimeError(f"Sim(3) did not cut the injected drift: {drift}")
+
+    _, (_, outs_f, fids_f, info_f) = stream(frames)
+    fl = trajectory_health(scene, fids_f, positions_of(outs_f.T_CW),
+                           list(outs_f.status))
+    fl["recoveries"] = info_f.recoveries
+    print("loop_stream_float32 " + json.dumps(fl), flush=True)
+    res.update(posegraph=pg, drift=drift, float32=fl)
     return res
 
 
@@ -673,13 +1102,22 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg, cam, vo = main_path_vo(scene)
     inputs = bench_inputs(frames, vo)
-    lk_cases = phase_kernels("klt_lk", inputs)
-    main_res = phase_main_path(scene, frames, vo)
-    phase_stream(scene, frames, vo)
-    v1_cases = phase_kernels("klt_v1", inputs)
-    phase_cli()
-    phase_xla(scene, frames, cfg, cam)
-    v1_res = phase_v1_path(scene, frames, cfg, cam)
+    res = {}
+    for name, phase in (
+            ("kernels_klt_lk", lambda: phase_kernels("klt_lk", inputs)),
+            ("main_path", lambda: phase_main_path(scene, frames, vo)),
+            ("stream_path", lambda: phase_stream(scene, frames, vo)),
+            ("kernels_klt_v1", lambda: phase_kernels("klt_v1", inputs)),
+            ("sift_path", lambda: phase_sift(scene, frames, cam)),
+            ("cli", phase_cli),
+            ("xla_path", lambda: phase_xla(scene, frames, cfg, cam)),
+            ("v1_path", lambda: phase_v1_path(scene, frames, cfg, cam)),
+            ("loop", phase_loop)):
+        t0 = time.perf_counter()
+        res[name] = phase()
+        print(f"phase {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    lk_cases, v1_cases = res["kernels_klt_lk"], res["kernels_klt_v1"]
+    main_res, v1_res = res["main_path"], res["v1_path"]
 
     print(json.dumps({"kernels": [
         kernel_entry("klt_lk", lk_cases, main_res["launches"]),

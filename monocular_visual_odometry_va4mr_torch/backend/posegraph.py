@@ -1,0 +1,168 @@
+"""Pose-graph optimization over SE(3) relative-pose constraints (port of
+``backend/posegraph.py``).
+
+Fixed edge tables (i, j, measured T_j T_i^-1, weight; weight 0 disables an
+edge); residual r_e = log(T_meas^-1 T_j T_i^-1) under left-multiplicative
+updates exp(xi) T; exact edge Jacobians at xi = 0 by forward-mode autodiff
+(:func:`edge_jacobians`); the normal equations
+assembled block by block into a dense (N*d, N*d) system by
+``index_put_(accumulate=True)``; gauge on node 0, LM damping, an optional
+Huber IRLS factor; ``torch.linalg.solve`` in float32.  The Gauss-Newton
+loop is a Python loop that returns the cost of every iteration.
+
+:func:`gauss_newton` is shared with the Sim(3) graph
+(``backend/posegraph_sim3.py``), which differs only in the group.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..core import lie
+
+
+class PoseGraph(NamedTuple):
+    T_CW: torch.Tensor  # (N, 4, 4) node poses (extrinsics convention)
+    edge_i: torch.Tensor  # (E,) int64 source node
+    edge_j: torch.Tensor  # (E,) int64 target node
+    T_meas: torch.Tensor  # (E, 4, 4) measured T_j * T_i^-1
+    weight: torch.Tensor  # (E,) float32 (0 = invalid edge)
+
+
+def chain_edges(nodes: torch.Tensor, invert: Callable):
+    """(edge_i, edge_j, measurements, weights) of the chain graph whose
+    edges reproduce ``nodes``: node k+1 times the inverse of node k."""
+    n = nodes.shape[0]
+    i = torch.arange(n - 1, device=nodes.device)
+    meas = nodes[1:] @ invert(nodes[:-1])
+    return i, i + 1, meas, torch.ones(n - 1, device=nodes.device)
+
+
+def odometry_edges(T_CW: torch.Tensor) -> PoseGraph:
+    """Build a chain graph whose edges reproduce the given trajectory."""
+    return PoseGraph(T_CW, *chain_edges(T_CW, lie.invert_se3))
+
+
+def append_edge(graph: NamedTuple, i: int, j: int, meas: torch.Tensor,
+                weight: float) -> NamedTuple:
+    """The graph with one more edge (the edge tables are fields 1..4)."""
+    nodes, edge_i, edge_j, all_meas, weights = graph
+    dev = nodes.device
+    return type(graph)(
+        nodes,
+        torch.cat([edge_i, torch.tensor([i], device=dev)]),
+        torch.cat([edge_j, torch.tensor([j], device=dev)]),
+        torch.cat([all_meas, meas.to(dev, all_meas.dtype)[None]]),
+        torch.cat([weights, torch.tensor([weight], dtype=weights.dtype,
+                                         device=dev)]))
+
+
+def add_edge(graph: PoseGraph, i: int, j: int, T_meas,
+             weight: float = 1.0) -> PoseGraph:
+    """Append one (loop-closure) edge."""
+    return append_edge(graph, i, j, torch.as_tensor(T_meas), weight)
+
+
+def _edge_residual(xi_i, xi_j, T_i, T_j, T_meas):
+    """Residual under left-mult updates exp(xi) T.  (..., 6)"""
+    Ti = lie.se3_exp(xi_i) @ T_i
+    Tj = lie.se3_exp(xi_j) @ T_j
+    return lie.se3_log(lie.invert_se3(T_meas) @ (Tj @ lie.invert_se3(Ti)))
+
+
+def edge_residuals(residual: Callable, dof: int, graph) -> torch.Tensor:
+    """(E, dof) residuals at the graph's current nodes."""
+    nodes, edge_i, edge_j, meas, _ = graph
+    z = torch.zeros((edge_i.shape[0], dof), dtype=nodes.dtype,
+                    device=nodes.device)
+    return residual(z, z, nodes[edge_i], nodes[edge_j], meas)
+
+
+def edge_jacobians(residual: Callable, dof: int, nodes_i, nodes_j, meas):
+    """(E, dof, dof) Jacobians of ``residual`` with respect to xi_i and
+    xi_j at xi = 0: ``jacfwd`` over the edges, written as one
+    ``torch.func.jvp`` per argument on a (dof, E) batch whose tangents are
+    the basis vectors.  (``vmap(jacfwd(...))`` over the edges makes every
+    per-edge scalar 0-dim, and torch gives a 0-dim tensor combined with a
+    Python float a float64 tangent under ``vmap``, which breaks the
+    matmuls after it.)"""
+    E = meas.shape[0]
+    eye = torch.eye(dof, dtype=meas.dtype, device=meas.device)
+    basis = eye[:, None, :].expand(dof, E, dof)
+    z = torch.zeros_like(basis)
+    _, Ji = torch.func.jvp(
+        lambda x: residual(x, z, nodes_i, nodes_j, meas), (z,), (basis,))
+    _, Jj = torch.func.jvp(
+        lambda x: residual(z, x, nodes_i, nodes_j, meas), (z,), (basis,))
+    return Ji.permute(1, 2, 0), Jj.permute(1, 2, 0)
+
+
+def graph_cost(graph: PoseGraph) -> torch.Tensor:
+    r = edge_residuals(_edge_residual, 6, graph)
+    return 0.5 * torch.sum(graph.weight * torch.sum(r * r, -1))
+
+
+def gauss_newton(graph, residual: Callable, exp: Callable, dof: int, *,
+                 iters: int, damping: float, robust_delta):
+    """Gauss-Newton over the nodes (field 0) of ``graph``; node 0 is the
+    gauge anchor.  Returns (refined nodes, costs (iters,))."""
+    nodes, ii, jj, meas, weight = graph
+    N = nodes.shape[0]
+    dev, dt = nodes.device, nodes.dtype
+    delta_rb = 1e30 if robust_delta is None else float(robust_delta)
+    z = torch.zeros((ii.shape[0], dof), dtype=dt, device=dev)
+    eye = torch.eye(dof, dtype=dt, device=dev)
+    costs = []
+    for _ in range(iters):
+        Ti, Tj = nodes[ii], nodes[jj]
+        r = residual(z, z, Ti, Tj, meas)
+        Ji, Jj = edge_jacobians(residual, dof, Ti, Tj, meas)
+        # sqrt(w) on the residual AND the Jacobians: the normal equations
+        # weight each edge by w, as graph_cost does; the Huber IRLS factor
+        # composes the same way.
+        w_r = torch.clamp(delta_rb / torch.clamp(
+            torch.linalg.vector_norm(r, dim=-1), min=1e-12), max=1.0)
+        sw = torch.sqrt(weight * w_r)
+        r = r * sw[:, None]
+        Ji = Ji * sw[:, None, None]
+        Jj = Jj * sw[:, None, None]
+
+        # Dense normal equations, one (dof, dof) block per node pair.
+        Hb = torch.zeros((N, N, dof, dof), dtype=dt, device=dev)
+        HtH_ij = torch.einsum("eai,eaj->eij", Ji, Jj)
+        Hb.index_put_((ii, ii), torch.einsum("eai,eaj->eij", Ji, Ji),
+                      accumulate=True)
+        Hb.index_put_((jj, jj), torch.einsum("eai,eaj->eij", Jj, Jj),
+                      accumulate=True)
+        Hb.index_put_((ii, jj), HtH_ij, accumulate=True)
+        Hb.index_put_((jj, ii), HtH_ij.transpose(-1, -2), accumulate=True)
+        g = torch.zeros((N, dof), dtype=dt, device=dev)
+        g.index_add_(0, ii, torch.einsum("eai,ea->ei", Ji, r))
+        g.index_add_(0, jj, torch.einsum("eai,ea->ei", Jj, r))
+
+        # Gauge: freeze node 0.
+        Hb[0] = 0.0
+        Hb[:, 0] = 0.0
+        Hb[0, 0] = eye
+        g[0] = 0.0
+
+        Hm = Hb.permute(0, 2, 1, 3).reshape(N * dof, N * dof)
+        Hm = Hm + damping * torch.eye(N * dof, dtype=dt, device=dev)
+        delta = torch.linalg.solve(Hm, -g.reshape(-1)).reshape(N, dof)
+        nodes = exp(delta) @ nodes
+        costs.append(0.5 * torch.sum(r * r))
+    return nodes, torch.stack(costs)
+
+
+def optimize(graph: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
+             robust_delta: float = None):
+    """Gauss-Newton pose-graph optimization; node 0 is the gauge anchor.
+
+    Returns (graph with refined T_CW, costs (iters,)).  ``robust_delta``:
+    optional Huber threshold on the per-edge residual norm (IRLS) bounding
+    the influence of outlier (wrong-loop) edges."""
+    T_out, costs = gauss_newton(graph, _edge_residual, lie.se3_exp, 6,
+                                iters=iters, damping=damping,
+                                robust_delta=robust_delta)
+    return graph._replace(T_CW=T_out), costs

@@ -9,10 +9,13 @@ the JAX package:
   ``render_frame``, ``render_sequence``): 3-D points rendered as textured
   Gaussian blobs, the CLI's ``--dataset synthetic``;
 * the KITTI-like textured corridor (``_value_noise``, ``TexturedScene``,
-  ``make_textured_scene``, ``_render_textured``): ``bench.py``'s scene.
+  ``make_textured_scene``, ``_render_textured``): ``bench.py``'s scene;
+* the loopy trajectories through the textured world (``make_orbit_scene``,
+  ``make_loop_scene``): the loop-closure scenes of the pose graph.
 
-``tests/test_torch_core.py`` and ``tests/test_torch_drivers.py`` assert that
-both copies render identical frames.
+``tests/test_torch_core.py``, ``tests/test_torch_drivers.py`` and
+``tests/test_torch_posegraph_pipeline.py`` assert that both copies render
+identical frames.
 """
 from __future__ import annotations
 
@@ -360,6 +363,136 @@ def make_textured_scene(
                          pillars.astype(np.float64), seed,
                          tile_period=tile_period,
                          textureless_ground=textureless_ground)
+
+
+def make_orbit_scene(
+    seed: int = 0,
+    num_frames: int = 80,
+    image_shape=(320, 416),
+    radius: float = 6.0,
+    revolutions: float = 1.05,
+    half_width: float = 14.0,
+    ground_y: float = 1.65,
+) -> TexturedScene:
+    """Loopy trajectory: the camera orbits a circle inside the textured
+    corridor and revisits its start viewpoint — the scene for loop-closure /
+    pose-graph tests (the corridor scenes never revisit anything)."""
+    H, W = image_shape
+    K = np.array([[0.7 * W, 0.0, W / 2.0],
+                  [0.0, 0.7 * W, H / 2.0],
+                  [0.0, 0.0, 1.0]])
+    poses = np.zeros((num_frames, 4, 4))
+    for i in range(num_frames):
+        th = 2.0 * np.pi * revolutions * i / num_frames
+        pos = np.array([radius * np.sin(th), 0.0,
+                        radius * (1.0 - np.cos(th))])
+        yaw = th  # heading = circle tangent
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        T = np.eye(4)
+        T[:3, :3] = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        T[:3, 3] = pos
+        poses[i] = T
+    pillars = np.zeros((0, 5))
+    return TexturedScene(K, poses, image_shape, half_width, ground_y,
+                         pillars, seed)
+
+
+def make_loop_scene(
+    seed: int = 0,
+    num_frames: int = 2761,
+    image_shape=(376, 1241),
+    K: np.ndarray = None,
+    laps: float = 3.0,
+    step: float = 1.0,
+    ground_y: float = 1.65,
+    num_pillars: int = 240,
+    path_clearance: float = 3.0,
+    margin: float = 14.0,
+) -> TexturedScene:
+    """Loop-y reference-scale world: the camera drives ``laps`` laps around a
+    circle inside a closed textured room, revisiting every viewpoint once per
+    lap — the scene for reference-scale (2761-frame, reference main.py:17)
+    streaming runs WITH loop closures, which the corridor scenes never
+    produce.  Circle radius follows from path length: R = step*F/(laps*2*pi)
+    (~147 m at the 2761-frame default — city-block scale).
+
+    World: textured ground plane, four walls (x = +-room_half via the
+    TexturedScene wall planes; z = const ends as two wall-sized "pillar"
+    quads), plus pillar quads LINING the circular lane on both sides like
+    building fronts (plus a scattered far-field population).  The lane-
+    lining density matters: a first cut with 36 pillars over the 2.9 km
+    path left almost no near-field structure — all strong corners sat
+    beyond 100 m, monocular scale random-walked 5x within 150 frames and
+    bootstrap triangulation starved (street scenes keep structure within
+    5-30 m essentially continuously).
+    """
+    rng = np.random.default_rng(seed)
+    H, W = image_shape
+    R = step * num_frames / (laps * 2.0 * np.pi)
+    room_half = R + margin
+    if K is None:
+        if image_shape == (376, 1241):
+            K = np.array([[718.856, 0.0, 607.1928],
+                          [0.0, 718.856, 185.2157],
+                          [0.0, 0.0, 1.0]])  # KITTI 05 (reference utils.py:22-24)
+        else:
+            K = np.array([[0.7 * W, 0.0, W / 2.0],
+                          [0.0, 0.7 * W, H / 2.0],
+                          [0.0, 0.0, 1.0]])
+
+    # Circle centered at the origin; camera starts at (-R, 0, 0) heading
+    # +z and turns right: pos(th) = R*(-cos th, 0, sin th), whose tangent
+    # (sin th, 0, cos th) EQUALS the yaw-th heading — the camera drives
+    # forward along the lane.  (A first cut used pos=(R sin th, 0,
+    # R(1-cos th)) with yaw=th, whose tangent is perpendicular to the
+    # heading: the camera strafed sideways for the whole lap.)
+    poses = np.zeros((num_frames, 4, 4))
+    for i in range(num_frames):
+        th = 2.0 * np.pi * laps * i / num_frames
+        cy, sy = np.cos(th), np.sin(th)
+        poses[i, :3, :3] = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        poses[i, :3, 3] = np.array([-R * cy, 0.0, R * sy])
+        poses[i, 3, 3] = 1.0
+
+    # End walls as two wall-sized z-plane quads (renderer treats pillars as
+    # bounded axis-aligned planes, so no new surface type is needed).
+    end_walls = np.array([
+        [-room_half + 2.0, -room_half, room_half, -6.0, ground_y],
+        [room_half - 2.0, -room_half, room_half, -6.0, ground_y],
+    ])
+    # Lane-lining pillars (4/5): staggered along the path on both sides at
+    # 3-9 m lateral offset — the "building fronts" that keep near-field
+    # structure in view continuously.  Far-field population (1/5):
+    # scattered over the room interior.  Each pillar gets the axis
+    # orientation (x-plane or z-plane quad) closest to FACING the local
+    # lane direction, so fronts stay visible all around the lap.
+    n_lane = (num_pillars * 4) // 5
+    n_far = num_pillars - n_lane
+    phi_l = np.sort(rng.uniform(0.0, 2.0 * np.pi, n_lane))
+    side = rng.choice([-1.0, 1.0], n_lane)
+    off = rng.uniform(path_clearance, path_clearance + 6.0, n_lane)
+    r_l = R + side * off
+    phi_f = rng.uniform(0.0, 2.0 * np.pi, n_far)
+    r_f = np.maximum(R - rng.uniform(12.0, R * 0.85, n_far), 2.0)
+    phi = np.concatenate([phi_l, phi_f])
+    r_p = np.concatenate([r_l, r_f])
+    n_tot = n_lane + n_far
+    px = -r_p * np.cos(phi)
+    pz = r_p * np.sin(phi)
+    pw = rng.uniform(1.0, 3.5, n_tot)
+    top = rng.uniform(-9.0, -2.5, n_tot)  # 4-10.5 m tall
+    # Tangent at phi is (sin phi, 0, cos phi): an x-plane quad (normal x,
+    # spanning z) faces the road when |cos phi| dominates; z-plane when
+    # |sin phi| does.
+    use_x = np.abs(np.cos(phi)) >= np.abs(np.sin(phi))
+    pil_z = np.stack([pz, px - pw / 2, px + pw / 2, top,
+                      np.full(n_tot, ground_y)], axis=1)[~use_x]
+    pil_x = np.stack([px, pz - pw / 2, pz + pw / 2, top,
+                      np.full(n_tot, ground_y)], axis=1)[use_x]
+    pillars = np.concatenate([end_walls, pil_z])
+    return TexturedScene(K, poses, image_shape, room_half, ground_y,
+                         pillars.astype(np.float64), seed,
+                         pillars_x=pil_x.astype(np.float64))
 
 
 def _render_textured(scene: TexturedScene, frame: int) -> np.ndarray:

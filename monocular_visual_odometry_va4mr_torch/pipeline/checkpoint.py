@@ -1,18 +1,17 @@
 """Checkpoint / resume for the VO state (port of ``pipeline/checkpoint.py``).
 
 The reference writes the state with orbax, the frame cursor and the
-host-side refinement state (emitted ``FrameRecord``s, the BA ring) to files
-of their own.  The port writes all three into ONE file, ``checkpoint.pt``:
+host-side refinement state (emitted ``FrameRecord``s, the BA ring, the
+pose-graph keyframe bank) to files of their own.  The port writes all of
+them into ONE file, ``checkpoint.pt``:
 a dict of CPU tensors and plain values written with ``torch.save`` to a
 temporary file and renamed over the previous checkpoint, then loaded with
 ``weights_only=True``.  The rename is atomic, so a crash leaves either the
 previous checkpoint or the new one, never a state of one frame beside the
 cursor or records of another.  A state saved by the JAX package reaches the
 port through numpy: ``FrameState.from_numpy`` of its fields, then
-:func:`save`.
-
-The pose-graph keyframe bank raises ``NotImplementedError`` until the pose
-graph is ported (ROADMAP.md Queue 1 item 13).
+:func:`save`; its keyframe bank through the same ``kf_*`` / ``bank_*``
+arrays (``posegraph_runner.bank_from_arrays``).
 """
 from __future__ import annotations
 
@@ -26,9 +25,6 @@ import torch
 from ..core.state import FrameState
 
 _FILE = "checkpoint.pt"
-
-_NO_BANK = ("the pose-graph keyframe bank is ROADMAP.md Queue 1 item 13; "
-            "the port's checkpoints carry records and the BA ring only")
 
 
 def _path(directory: str) -> str:
@@ -51,9 +47,8 @@ def save(directory: str, state: FrameState, frame_index: int, *,
     """Write a resumable checkpoint (replaces the previous one whole).
 
     ``records``: list of ``pipeline.runner.FrameRecord``; ``ring``:
-    ``pipeline.ba_refine.BARing``."""
-    if bank is not None:
-        raise NotImplementedError(_NO_BANK)
+    ``pipeline.ba_refine.BARing``; ``bank``:
+    ``pipeline.posegraph_runner.KeyframeBank``."""
     tensors = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
@@ -81,6 +76,11 @@ def save(directory: str, state: FrameState, frame_index: int, *,
             ring_obs_mask=_tensor(np.stack(ring.obs_mask)),
             ring_obs_gen=_tensor(np.stack(ring.obs_gen)),
         )
+    if bank is not None and bank.keyframes:
+        from .posegraph_runner import bank_to_arrays
+
+        aux.update({k: int(v) if np.ndim(v) == 0 else _tensor(v)
+                    for k, v in bank_to_arrays(bank).items()})
     payload = dict(frame_index=int(frame_index), state=tensors, aux=aux)
     path = _path(directory)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -90,10 +90,9 @@ def save(directory: str, state: FrameState, frame_index: int, *,
     os.replace(tmp, path)
 
 
-def restore_aux(directory: str):
+def restore_aux(directory: str, vo=None):
     """Restore (records, ring, bank) from a checkpoint; each is None if it
-    was not saved (the bank always: saving one raises
-    ``NotImplementedError``)."""
+    was not saved.  ``vo`` is needed to rebuild the bank."""
     saved = _load(directory)
     if saved is None:
         return None, None, None
@@ -120,7 +119,13 @@ def restore_aux(directory: str):
             ring.obs_uv.append(z["ring_obs_uv"][i])
             ring.obs_mask.append(z["ring_obs_mask"][i])
             ring.obs_gen.append(z["ring_obs_gen"][i])
-    return records, ring, None
+    bank = None
+    if "kf_frame" in z and vo is not None:
+        from .posegraph_runner import bank_from_arrays
+
+        bank = bank_from_arrays(vo, **{k: v for k, v in z.items()
+                                       if k.startswith(("kf_", "bank_"))})
+    return records, ring, bank
 
 
 def restore(directory: str,

@@ -1,0 +1,439 @@
+"""Keyframe bank, loop-closure detection and trajectory refinement (port of
+``pipeline/posegraph_runner.py``).
+
+The runner (or :func:`bank_from_stream` after a streamed run) collects
+keyframes: pose, SIFT features and a snapshot of the VO map.  Loop
+candidates come from one K x K product of pooled global descriptors; each
+candidate pair is verified on the device (descriptor match, 5-point
+essential RANSAC, cheirality pose, unit-baseline triangulation); the
+verified loop edges and the odometry chain form a Sim(3) (default) or SE(3)
+pose graph, whose corrections every frame then rides along with.
+
+Departures from the reference, by design:
+  * RANSAC banks come from ``sampler(generator, valid, iterations, 5)``, as
+    in ``VisualOdometry``; :func:`detect_loops` calls it once per candidate
+    pair in pair order (the reference's draw for pair k is
+    ``fold_in(PRNGKey(seed), k)``).
+  * A chunk of 8 pairs is matched in one batched call; the essential RANSAC,
+    pose and triangulation then run pair by pair (the port's RANSAC takes
+    one problem), with one host sync per chunk.
+  * :func:`bank_to_arrays` / :func:`bank_from_arrays` carry a bank as the
+    arrays of the reference's checkpoint (``kf_*``, ``bank_*``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..backend import posegraph, posegraph_sim3
+from ..ops import essential, match, sift, triangulate
+
+
+@dataclasses.dataclass
+class Keyframe:
+    record_idx: int  # index into RunResult.records
+    frame: int  # dataset frame index
+    T_CW: np.ndarray  # (4, 4)
+    uv: np.ndarray  # (F, 2) SIFT keypoints
+    desc: np.ndarray  # (F, 128)
+    valid: np.ndarray  # (F,)
+    # VO-map snapshot for the loop-closure scale estimate: pixel positions
+    # and camera-frame depths of the valid landmarks, in the odometry's
+    # current scale.
+    lm_uv: np.ndarray = None  # (L, 2)
+    lm_z: np.ndarray = None  # (L,)
+    med_depth: float = 0.0  # median of lm_z
+    # Pooled global descriptor: the L2-normalized sum of the frame's
+    # L2-normalized SIFT descriptors (a 1-cluster VLAD).
+    gdesc: np.ndarray = None  # (128,)
+
+
+def _global_desc(desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    d = np.asarray(desc, np.float32)
+    n = np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.where(n > 1e-9, d / np.maximum(n, 1e-9), 0.0)
+    g = (d * np.asarray(valid, np.float32)[:, None]).sum(0)
+    return (g / max(np.linalg.norm(g), 1e-9)).astype(np.float32)
+
+
+class KeyframeBank:
+    """Collects keyframes during a run (pose + SIFT features on ``vo``'s
+    device)."""
+
+    def __init__(self, vo, every: int = 8, max_features: int = 512):
+        self.vo = vo
+        self.every = every
+        self.max_features = max_features
+        self.keyframes: List[Keyframe] = []
+
+    def _features(self, image):
+        sc = self.vo.config.sift
+        f = sift.detect_and_compute(
+            self.vo._as_image(image), max_features=self.max_features,
+            num_octaves=sc.num_octaves,
+            scales_per_octave=sc.scales_per_octave,
+            contrast_threshold=sc.contrast_threshold,
+            edge_threshold=sc.edge_threshold, sigma=sc.sigma,
+            first_octave=sc.first_octave)
+        return f.uv.cpu().numpy(), f.desc.cpu().numpy(), f.valid.cpu().numpy()
+
+    def add_keyframe(self, record_idx: int, frame: int, T_CW, image,
+                     lm_uv, lm_z) -> None:
+        uv, desc, valid = self._features(image)
+        lm_uv = np.asarray(lm_uv)
+        z = np.asarray(lm_z)
+        good = (np.isfinite(z) & (z > 0)
+                & np.all(np.isfinite(lm_uv), axis=1))
+        lm_uv, z = lm_uv[good], z[good]
+        self.keyframes.append(Keyframe(
+            record_idx=record_idx, frame=frame,
+            T_CW=np.asarray(T_CW, np.float32).copy(),
+            uv=uv, desc=desc, valid=valid, lm_uv=lm_uv, lm_z=z,
+            med_depth=float(np.median(z)) if z.size else 0.0,
+            gdesc=_global_desc(desc, valid)))
+
+    def maybe_add(self, record_idx: int, frame: int, state, image) -> None:
+        if int(state.status) != 0 or frame % self.every != 0:
+            return
+        T_CW = state.T_CW.cpu().numpy()
+        lv = state.lm_valid.cpu().numpy()
+        lm = state.lm_xyz.cpu().numpy()[lv]
+        z = (lm @ T_CW[:3, :3].T + T_CW[:3, 3])[:, 2]
+        self.add_keyframe(record_idx, frame, T_CW, image,
+                          state.lm_uv.cpu().numpy()[lv], z)
+
+
+def bank_to_arrays(bank: KeyframeBank) -> Dict[str, np.ndarray]:
+    """A bank of at least one keyframe as the arrays of the reference's
+    checkpoint: ``bank_every``, ``bank_max_features`` and ``kf_*`` (the
+    landmark snapshots padded to the longest, their lengths in
+    ``kf_lm_n``)."""
+    kfs = bank.keyframes
+    Lmax = max([1] + [len(k.lm_z) for k in kfs])
+    lm_uv = np.zeros((len(kfs), Lmax, 2), np.float32)
+    lm_z = np.zeros((len(kfs), Lmax), np.float32)
+    for i, k in enumerate(kfs):
+        lm_uv[i, :len(k.lm_z)] = k.lm_uv
+        lm_z[i, :len(k.lm_z)] = k.lm_z
+    return dict(
+        bank_every=np.int64(bank.every),
+        bank_max_features=np.int64(bank.max_features),
+        kf_record_idx=np.array([k.record_idx for k in kfs], np.int64),
+        kf_frame=np.array([k.frame for k in kfs], np.int64),
+        kf_T_CW=np.stack([k.T_CW for k in kfs]).astype(np.float32),
+        kf_uv=np.stack([k.uv for k in kfs]),
+        kf_desc=np.stack([k.desc for k in kfs]),
+        kf_valid=np.stack([k.valid for k in kfs]),
+        kf_lm_uv=lm_uv, kf_lm_z=lm_z,
+        kf_lm_n=np.array([len(k.lm_z) for k in kfs], np.int64),
+        kf_gdesc=np.stack([k.gdesc for k in kfs]))
+
+
+def bank_from_arrays(vo, **arrays) -> KeyframeBank:
+    """A bank from the arrays of :func:`bank_to_arrays` (or of the
+    reference's checkpoint ``aux.npz``)."""
+    z = {k: np.asarray(v) for k, v in arrays.items()}
+    bank = KeyframeBank(vo, every=int(z["bank_every"]),
+                        max_features=int(z["bank_max_features"]))
+    for i in range(len(z["kf_frame"])):
+        n = int(z["kf_lm_n"][i])
+        bank.keyframes.append(Keyframe(
+            record_idx=int(z["kf_record_idx"][i]), frame=int(z["kf_frame"][i]),
+            T_CW=z["kf_T_CW"][i], uv=z["kf_uv"][i], desc=z["kf_desc"][i],
+            valid=z["kf_valid"][i], lm_uv=z["kf_lm_uv"][i, :n],
+            lm_z=z["kf_lm_z"][i, :n],
+            med_depth=float(np.median(z["kf_lm_z"][i, :n])) if n else 0.0,
+            gdesc=z["kf_gdesc"][i]))
+    return bank
+
+
+def bank_from_stream(vo, outs, frame_ids, images: Dict[int, np.ndarray],
+                     *, every: int = 8,
+                     max_features: int = 512) -> KeyframeBank:
+    """A KeyframeBank from ``scan_driver.run_streaming(...,
+    emit_landmarks=True)`` outputs; ``images``: the keyframe images kept on
+    the host by the caller (:func:`keep_every`), keyed by frame index."""
+    bank = KeyframeBank(vo, every=every, max_features=max_features)
+    status = np.asarray(outs.status)
+    for local, fid in enumerate(frame_ids):
+        if fid % every != 0 or int(status[local]) != 0 or fid not in images:
+            continue
+        lv = np.asarray(outs.lm_valid[local])
+        bank.add_keyframe(local, fid, np.asarray(outs.T_CW[local]),
+                          images[fid], np.asarray(outs.lm_uv[local])[lv],
+                          np.asarray(outs.lm_z[local])[lv])
+    return bank
+
+
+def keep_every(frames, every: int, store: Dict[int, np.ndarray]):
+    """Tee an (idx, image) stream, keeping every ``every``-th frame in
+    ``store`` for later keyframe processing."""
+    for idx, img in frames:
+        if idx % every == 0:
+            store[idx] = np.asarray(img)
+        yield idx, img
+
+
+def _metric_baseline(kf: Keyframe, uv_feat: np.ndarray, z_tri: np.ndarray,
+                     sel: np.ndarray, *, max_px: float = 5.0,
+                     min_assoc: int = 6) -> Optional[float]:
+    """|t| of the loop pair in ``kf``'s local odometry scale: the median of
+    z_vo / z_tri over loop matches associated (by pixel distance) with the
+    keyframe's VO landmarks; None when too few associate or the ratios
+    spread (inter-quartile range above the median)."""
+    if kf.lm_uv is None or len(kf.lm_uv) == 0 or not sel.any():
+        return None
+    uv = uv_feat[sel]
+    d2 = ((uv[:, None, :] - kf.lm_uv[None, :, :]) ** 2).sum(-1)
+    nn = d2.argmin(1)
+    ok = d2[np.arange(len(nn)), nn] < max_px ** 2
+    zt = z_tri[sel][ok]
+    zv = kf.lm_z[nn[ok]]
+    good = np.isfinite(zt) & (zt > 1e-9)
+    if good.sum() < min_assoc:
+        return None
+    r = zv[good] / zt[good]
+    med = float(np.median(r))
+    iqr = float(np.percentile(r, 75) - np.percentile(r, 25))
+    if med <= 0 or iqr > med:
+        return None
+    return med
+
+
+def retrieve_candidates(bank: KeyframeBank, *, min_gap_frames: int = 30,
+                        topk: int = 3, min_sim: float = 0.5):
+    """The top-k admissible partners of every keyframe by pooled-descriptor
+    similarity (one K x K product).  Returns sorted (a, b) pairs, a < b."""
+    kfs = bank.keyframes
+    K = len(kfs)
+    if K < 2:
+        return []
+    G = np.stack([k.gdesc for k in kfs])
+    S = G @ G.T
+    frames = np.array([k.frame for k in kfs])
+    gap_ok = np.abs(frames[:, None] - frames[None, :]) >= min_gap_frames
+    S = np.where(gap_ok, S, -np.inf)
+    pairs = set()
+    k = min(topk, K - 1)
+    top = np.argpartition(-S, k - 1, axis=1)[:, :k]
+    for b in range(K):
+        for a in top[b]:
+            if np.isfinite(S[b, a]) and S[b, a] >= min_sim:
+                pairs.add((min(int(a), b), max(int(a), b)))
+    return sorted(pairs)
+
+
+VERIFY_CHUNK = 8
+
+
+def verify_pairs(vo, cam, pairs, kfs, *, ransac_iters: int,
+                 threshold_px: float, sampler, generator):
+    """Geometric verification of keyframe pairs, a chunk of
+    ``VERIFY_CHUNK`` at a time: ratio-test matching (batched over the
+    chunk), 5-point essential RANSAC, cheirality pose and unit-baseline DLT
+    depths in both views (pair by pair).  Returns, per pair, the host
+    arrays (idx1, inl, ok, R, t, votes, z_i, z_j, n_match, n_inl)."""
+    dev = vo.device
+    ratio = vo.config.sift.ratio
+    Kmat = cam.matrix(dev)
+    P0 = Kmat @ torch.eye(3, 4, device=dev)
+    out = []
+    for c0 in range(0, len(pairs), VERIFY_CHUNK):
+        chunk = pairs[c0:c0 + VERIFY_CHUNK]
+
+        def stack(name, side):
+            return torch.from_numpy(np.stack(
+                [getattr(kfs[p[side]], name) for p in chunk])).to(dev)
+
+        u0, u1 = stack("uv", 0), stack("uv", 1)
+        idx1, mok = match.match_ratio(stack("desc", 0), stack("valid", 0),
+                                      stack("desc", 1), stack("valid", 1),
+                                      ratio=ratio)
+        rows = []
+        for ci in range(len(chunk)):
+            u1m = u1[ci][idx1[ci]]
+            idx, samp_ok = sampler(generator, mok[ci], ransac_iters, 5)
+            E, inl, ok = essential.find_essential_ransac(
+                cam, u0[ci], u1m, mok[ci], idx, samp_ok,
+                threshold_px=threshold_px, solver="5point")
+            R, t, votes = essential.recover_pose(E, cam, u0[ci], u1m, inl)
+            n = u0.shape[1]
+            P1 = Kmat @ torch.cat([R, t[:, None]], 1)
+            X = triangulate.triangulate_dlt(P0.expand(n, 3, 4),
+                                            P1.expand(n, 3, 4), u0[ci], u1m)
+            rows.append((idx1[ci], inl, ok, R, t, votes, X[:, 2],
+                         X @ R[2] + t[2], mok[ci].sum(), inl.sum()))
+        out.extend(tuple(a.cpu().numpy() for a in row) for row in rows)
+    return out
+
+
+def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
+                 min_matches: int = 50, min_inliers: int = 30,
+                 ransac_iters: int = 300, seed: int = 0,
+                 mode: str = "retrieval", topk: int = 3,
+                 min_depth_ratio: float = 3.0, sampler=None,
+                 generator: Optional[torch.Generator] = None):
+    """Find and verify loop-closure keyframe pairs.
+
+    ``mode="retrieval"``: global-descriptor top-k candidates;
+    ``"exhaustive"``: every admissible pair.  ``sampler``: draws the RANSAC
+    banks (the VO's when None); ``generator``: the generator it is given,
+    one seeded from ``seed`` on the VO's device when None.  ``cam``: the
+    VO's camera when None.
+
+    Returns [(i_kf, j_kf, R, t_dir, n_inl, t_i, t_j)]: t_i / t_j are the
+    loop baseline measured in keyframe i's / j's local odometry scale
+    (:func:`_metric_baseline`; None when unobservable)."""
+    vo = bank.vo
+    kfs = bank.keyframes
+    if mode == "retrieval":
+        pairs = retrieve_candidates(bank, min_gap_frames=min_gap_frames,
+                                    topk=topk)
+    else:
+        pairs = [(a, b) for a in range(len(kfs))
+                 for b in range(a + 1, len(kfs))
+                 if kfs[b].frame - kfs[a].frame >= min_gap_frames]
+    if not pairs:
+        return []
+    if generator is None:
+        generator = torch.Generator(device=vo.device)
+        generator.manual_seed(seed)
+    verified = verify_pairs(vo, cam if cam is not None else vo.cam, pairs,
+                            kfs, ransac_iters=ransac_iters,
+                            threshold_px=1.5,
+                            sampler=sampler or vo.sampler,
+                            generator=generator)
+    loops = []
+    for (a, b), res in zip(pairs, verified):
+        idx1, inl, ok, R, t, votes, z_i, z_j, n_match, n_inl = res
+        if (int(n_match) < min_matches or not bool(ok)
+                or int(n_inl) < min_inliers or int(votes) < min_inliers // 2):
+            continue
+        m = (inl & np.isfinite(z_i) & np.isfinite(z_j) & (z_i > 0)
+             & (z_j > 0))
+        if m.sum() < min_inliers // 2:
+            continue
+        # Revisit gate: z is depth in units of the pair's baseline, so a
+        # true revisit (small parallax) has a large median z; wide-baseline
+        # co-observation along an arc does not.
+        if float(np.median(z_i[m])) < min_depth_ratio:
+            continue
+        t_i = _metric_baseline(kfs[a], kfs[a].uv, z_i, m)
+        t_j = _metric_baseline(kfs[b], kfs[b].uv[idx1], z_j, m)
+        loops.append((a, b, R, t, int(n_inl), t_i, t_j))
+    return loops
+
+
+def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
+                      loop_weight: float = 3.0, iters: int = 15,
+                      min_gap_frames: int = 30, min_matches: int = 40,
+                      min_inliers: int = 25, method: str = "sim3",
+                      mode: str = "retrieval", robust_delta: float = 0.5,
+                      min_loop_edges: int = 2, verbose: bool = False,
+                      sampler=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Optional[np.ndarray]:
+    """Build the pose graph (odometry chain + verified loop edges) on the
+    VO's device, optimize it, and return corrected (len(records), 3)
+    positions, or None if no keyframes or loops make a graph worthwhile.
+
+    ``records``: anything with ``.T_WC`` per frame.  ``method="sim3"``:
+    loop edges carry the relative scale measured from both keyframes' maps,
+    Huber-robust solve with leave-one-out pruning; ``"se3"``: loop edges
+    borrow |t| from the current estimate.  Non-keyframe poses ride along
+    with their preceding keyframe's correction (rescaled by the node's scale
+    on Sim(3))."""
+    kfs = bank.keyframes
+    if len(kfs) < 3:
+        return None
+    loops = detect_loops(bank, cam, min_gap_frames=min_gap_frames,
+                         min_matches=min_matches, min_inliers=min_inliers,
+                         mode=mode, sampler=sampler, generator=generator)
+    if verbose:
+        print(f"posegraph[{method}]: {len(kfs)} keyframes, "
+              f"{len(loops)} loop edges")
+    if not loops:
+        return None
+    T_nodes = torch.from_numpy(np.stack([k.T_CW for k in kfs]).astype(
+        np.float32)).to(bank.vo.device)
+
+    if method == "sim3":
+        graph = posegraph_sim3.from_se3_chain(T_nodes)
+        n_edges = 0
+        for (a, b, R, t_dir, _, t_a, t_b) in loops:
+            # The metric baseline must be measurable from BOTH keyframes'
+            # maps: a true revisit re-sees the same near structure.
+            if t_a is None or t_b is None:
+                continue
+            graph = posegraph_sim3.add_loop_edge(
+                graph, a, b, R, t_dir * t_a, t_b / max(t_a, 1e-9),
+                weight=loop_weight)
+            n_edges += 1
+        # Quorum: a single loop edge cannot be checked against another.
+        if n_edges < min_loop_edges:
+            return None
+        out, _, dropped = posegraph_sim3.optimize_consistent(
+            graph, n_odo=len(kfs) - 1, iters=iters,
+            robust_delta=robust_delta, verbose=verbose)
+        if dropped.all():
+            return None
+        T_new = posegraph_sim3.corrected_poses(out).cpu().numpy()
+        S = out.S_CW.cpu().numpy()
+        node_scale = np.asarray([
+            float(np.linalg.det(S[n, :3, :3])) ** (1 / 3)
+            for n in range(len(kfs))])
+    else:
+        graph = posegraph.odometry_edges(T_nodes)
+        for (a, b, R, t_dir, _, _, _) in loops:
+            # The unit loop translation at the graph's current estimate of
+            # that displacement.
+            T_rel_est = np.asarray(kfs[b].T_CW) @ np.linalg.inv(
+                np.asarray(kfs[a].T_CW))
+            T_meas = np.eye(4, dtype=np.float32)
+            T_meas[:3, :3] = R
+            T_meas[:3, 3] = t_dir * np.linalg.norm(T_rel_est[:3, 3])
+            graph = posegraph.add_edge(graph, a, b, torch.from_numpy(T_meas),
+                                       weight=loop_weight)
+        out, _ = posegraph.optimize(graph, iters=iters,
+                                    robust_delta=robust_delta)
+        T_new = out.T_CW.cpu().numpy()
+        node_scale = np.ones(len(kfs))
+
+    # Each record's pose relative to its keyframe, rescaled by the node's
+    # scale correction, recomposed onto the corrected keyframe pose.
+    positions = np.stack([r.T_WC[:3, 3] for r in records])
+    kf_rec = [k.record_idx for k in kfs]
+    for n, k in enumerate(kfs):
+        T_old_WC = np.linalg.inv(k.T_CW)
+        T_new_WC = np.linalg.inv(T_new[n])
+        inv_old = np.linalg.inv(T_old_WC)
+        hi = kf_rec[n + 1] if n + 1 < len(kfs) else len(records)
+        for ridx in range(k.record_idx, hi):
+            T_WC = np.eye(4)
+            T_WC[:3, :3] = records[ridx].T_WC[:3, :3]
+            T_WC[:3, 3] = records[ridx].T_WC[:3, 3]
+            rel = inv_old @ T_WC
+            rel[:3, 3] /= node_scale[n]
+            positions[ridx] = (T_new_WC @ rel)[:3, 3]
+    return positions
+
+
+@dataclasses.dataclass
+class _LiteRecord:
+    T_WC: np.ndarray
+
+
+def refine_stream_trajectory(outs, frame_ids, bank: KeyframeBank, cam=None,
+                             **kw) -> Optional[np.ndarray]:
+    """:func:`refine_trajectory` over streamed outputs (T_CW per frame)."""
+    T = np.asarray(outs.T_CW)
+    records = []
+    for i in range(T.shape[0]):
+        T_WC = np.eye(4)
+        T_WC[:3, :3] = T[i, :3, :3].T
+        T_WC[:3, 3] = -T[i, :3, :3].T @ T[i, :3, 3]
+        records.append(_LiteRecord(T_WC))
+    return refine_trajectory(records, bank, cam, **kw)

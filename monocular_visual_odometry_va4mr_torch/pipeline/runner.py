@@ -2,17 +2,15 @@
 
 Feeds frames to ``VisualOdometry.step`` one call per frame, collects poses
 and metrics on the host, re-bootstraps after tracking loss, and optionally
-refines with host-side windowed BA (``--ba-every``) and checkpoints every K
-frames.
+refines with host-side windowed BA (``--ba-every``), collects pose-graph
+keyframes (``posegraph=True``) and checkpoints every K frames.
 
 Random draws: each call draws its RANSAC bank from a ``torch.Generator``
 seeded from (seed, stream) by :func:`frame_generator`: the bootstrap from
 stream 0, the step of frame ``idx`` from ``idx`` and a re-bootstrap at frame
 ``idx`` from ``10_000_000 + idx``, the pattern of ``jax.random.fold_in`` in
-the reference.  So a resumed run repeats the uninterrupted one.
-
-The pose-graph option (``posegraph=True``) is ROADMAP.md Queue 1 item 13 and
-raises ``NotImplementedError``.
+the reference, and the loop verification of the pose graph from
+``20_000_000``.  So a resumed run repeats the uninterrupted one.
 """
 from __future__ import annotations
 
@@ -27,6 +25,7 @@ from ..core.state import STATUS_TRACKING, FrameState
 from .vo import VisualOdometry
 
 REBOOT_STREAM = 10_000_000  # generator stream offset of re-bootstraps
+POSEGRAPH_STREAM = 20_000_000  # generator stream of the loop verification
 
 
 def frame_seed(seed: int, stream: int) -> int:
@@ -55,6 +54,8 @@ class FrameRecord:
 class RunResult:
     records: List[FrameRecord]
     final_snapshot: Optional[Dict] = None
+    # (len(records), 3) positions after pose-graph refinement, or None.
+    refined_positions: Optional[np.ndarray] = None
 
     @property
     def positions(self) -> np.ndarray:
@@ -211,17 +212,18 @@ def run_sequence(
     recover: bool = True,
     recover_after: int = 2,
     posegraph: bool = False,
+    posegraph_every: int = 8,
+    posegraph_method: str = "sim3",
     on_frame: Optional[Callable] = None,
 ) -> RunResult:
     """Run the full pipeline over an (index, image) iterable on ``vo``'s
     device.
 
     The first frame and the frame ``bootstrap_stride`` later form the
-    bootstrap pair, the frames between them its KLT chain."""
-    if posegraph:
-        raise NotImplementedError(
-            "posegraph=True: the pose graph and loop closure are ROADMAP.md "
-            "Queue 1 item 13")
+    bootstrap pair, the frames between them its KLT chain.  ``posegraph``:
+    keep a keyframe every ``posegraph_every`` frames and refine the
+    trajectory with the ``posegraph_method`` ("sim3" or "se3") pose graph
+    at the end (``RunResult.refined_positions``)."""
     dev = vo.device
     it: Iterator = iter(frames)
     records: List[FrameRecord] = []
@@ -246,17 +248,27 @@ def run_sequence(
 
         ring = BARing(window=ba_window)
 
+    bank = None
+    if posegraph:
+        from .posegraph_runner import KeyframeBank
+
+        bank = KeyframeBank(vo, every=posegraph_every)
+        bank.maybe_add(len(records) - 1, idx1, state, img1)
+
     resume_at = None
     if resume_from is not None:
         from . import checkpoint
 
         state, resume_at = checkpoint.restore(resume_from, state)
-        # Host-side refinement state (records, BA ring) resumes too.
-        rec_r, ring_r, _ = checkpoint.restore_aux(resume_from)
+        # Host-side refinement state (records, BA ring, keyframe bank)
+        # resumes too.
+        rec_r, ring_r, bank_r = checkpoint.restore_aux(resume_from, vo)
         if rec_r is not None:
             records = rec_r
         if ring_r is not None:
             ring = ring_r
+        if bank_r is not None:
+            bank = bank_r
         if verbose:
             print(f"resumed from {resume_from} at frame {resume_at}")
 
@@ -328,6 +340,8 @@ def run_sequence(
         records.append(_record(idx, state, wall))
         if int(state.status) == STATUS_TRACKING:
             last_good_state = state
+        if bank is not None:
+            bank.maybe_add(len(records) - 1, idx, state, img)
         if on_frame is not None:
             on_frame(records, _snapshot(state, img))
         last_img = img
@@ -342,6 +356,14 @@ def run_sequence(
             from . import checkpoint
 
             checkpoint.save(checkpoint_dir, state, idx, records=records,
-                            ring=ring)
+                            ring=ring, bank=bank)
 
-    return RunResult(records, final_snapshot=_snapshot(state, last_img))
+    refined = None
+    if bank is not None:
+        from .posegraph_runner import refine_trajectory
+
+        refined = refine_trajectory(
+            records, bank, method=posegraph_method, verbose=verbose,
+            generator=frame_generator(seed, POSEGRAPH_STREAM, dev))
+    return RunResult(records, final_snapshot=_snapshot(state, last_img),
+                     refined_positions=refined)

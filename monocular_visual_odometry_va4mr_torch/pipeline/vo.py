@@ -1,5 +1,5 @@
-"""The VO state machine: KLT bootstrap + per-frame step (port of
-``pipeline/vo.py``, the main path).
+"""The VO state machine: SIFT or KLT bootstrap + per-frame step (port of
+``pipeline/vo.py``).
 
 ``VisualOdometry(cam, config, device)`` holds the camera, the config and the
 device (``cuda`` unless the caller names another); ``bootstrap(img0, img1,
@@ -29,8 +29,6 @@ Departures from the reference, by design:
     ``new_frame % every == 0``, and its result is selected on the device
     with ``torch.where(pnp_ok, ...)``, which is what the reference's
     ``lax.cond`` skip branch returns when PnP fails.  No host sync.
-  * Only ``bootstrap_method="klt"`` exists so far; SIFT raises
-    ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,7 +44,7 @@ from ..core.slots import (alloc_slots, scatter_add_rows, scatter_rows,
 from ..core.state import STATUS_LOST, STATUS_TRACKING, FrameState, init_state
 from ..backend import ba as ba_mod
 from ..ops import (corners, essential, image as imops, klt, klt_pallas,
-                   klt_pallas2, pnp, ransac, triangulate)
+                   klt_pallas2, match, pnp, ransac, sift, triangulate)
 
 Sampler = Callable[[torch.Generator, torch.Tensor, int, int], tuple]
 
@@ -76,11 +74,9 @@ class VisualOdometry:
         self.cam = cam
         self.config = config
         self.device = torch.device(device if device is not None else "cuda")
-        if config.bootstrap_method != "klt":
-            raise NotImplementedError(
-                f"bootstrap_method={config.bootstrap_method!r}: the port has "
-                "only the KLT bootstrap so far; SIFT is ROADMAP.md Queue 1 "
-                "item 12.")
+        if config.bootstrap_method not in ("sift", "klt"):
+            raise ValueError(f"bootstrap_method={config.bootstrap_method!r}: "
+                             "expected 'sift' or 'klt'")
         self.num_levels = max(_num_klt_levels(config),
                               min(klt_pallas.COARSE_LEVEL + 1, 6))
         backend = config.klt.backend
@@ -245,17 +241,32 @@ class VisualOdometry:
 
     def bootstrap(self, img0, img1, intermediate=(),
                   generator: Optional[torch.Generator] = None) -> FrameState:
-        """Initialize from two frames: Shi-Tomasi corners on ``img0``,
-        KLT chain-tracked through ``intermediate`` to ``img1``.
-        ``generator`` draws the RANSAC bank (one seeded from ``seed`` if
-        None)."""
+        """Initialize from two frames.  ``bootstrap_method="sift"``: SIFT on
+        both frames, ratio-test matched (``intermediate`` unused);
+        ``"klt"``: Shi-Tomasi corners on ``img0``, KLT chain-tracked through
+        ``intermediate`` to ``img1``.  ``generator`` draws the RANSAC bank
+        (one seeded from ``seed`` if None)."""
         cfg = self.config
         M = cfg.capacity.max_candidates
         dev = self.device
         img0 = self._as_image(img0)
-        pyr0 = self.make_pyramid(img0)
-        pyr1 = self.make_pyramid(self._as_image(img1))
+        img1 = self._as_image(img1)
+        pyr1 = self.make_pyramid(img1)
+        if cfg.bootstrap_method == "sift":
+            sc = cfg.sift
+            kw = dict(max_features=M, num_octaves=sc.num_octaves,
+                      scales_per_octave=sc.scales_per_octave,
+                      contrast_threshold=sc.contrast_threshold,
+                      edge_threshold=sc.edge_threshold, sigma=sc.sigma,
+                      first_octave=sc.first_octave)
+            f0 = sift.detect_and_compute(img0, **kw)
+            f1 = sift.detect_and_compute(img1, **kw)
+            idx1, mok = match.match_ratio(f0.desc, f0.valid, f1.desc,
+                                          f1.valid, ratio=sc.ratio)
+            return self._bootstrap_geom(f0.uv, f1.uv[idx1], mok, pyr1,
+                                        self._generator(generator))
 
+        pyr0 = self.make_pyramid(img0)
         uv0_det, _, det_valid = self._detect(img0)
         n = min(int(uv0_det.shape[0]), M)
         uv0 = torch.zeros((M, 2), dtype=torch.float32, device=dev)

@@ -6,12 +6,14 @@ Examples:
       --max-frames 40 --ba-every 8 --checkpoint-dir ckpt/ --checkpoint-every 20
   python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
       --max-frames 40 --ba-every 8 --resume ckpt/
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
+      --bootstrap sift --posegraph --posegraph-method sim3
 
 The pipeline runs on ``--device`` (``cuda`` by default; ``cpu`` only when
 asked).  Only the synthetic corridor runs so far: the KITTI / Malaga /
-Parking loaders and the native PNG decoder, the dashboard (``--plot*``) and
-the pose graph (``--posegraph``) are ROADMAP.md Queue 1 items still to port
-and raise ``NotImplementedError``.
+Parking loaders and the native PNG decoder and the dashboard (``--plot*``)
+are ROADMAP.md Queue 1 items still to port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,6 @@ _TODO = {
     "datasets": "the KITTI / Malaga / Parking loaders and the native PNG "
                 "decoder (ROADMAP.md Queue 1, dataset loaders)",
     "plot": "the dashboard (ROADMAP.md Queue 1, viz)",
-    "posegraph": "the pose graph and loop closure (ROADMAP.md Queue 1 "
-                 "item 13)",
 }
 
 
@@ -58,7 +58,14 @@ def build_parser():
     p.add_argument("--ba-window", type=int, default=8,
                    help="number of recent frames in the BA window")
     p.add_argument("--posegraph", action="store_true",
-                   help="pose-graph refinement with loop closures")
+                   help="collect keyframes + SIFT loop closures and refine "
+                        "the trajectory with pose-graph optimization")
+    p.add_argument("--posegraph-method", choices=["sim3", "se3"],
+                   default="sim3",
+                   help="loop-closure graph: Sim(3) corrects monocular "
+                        "scale drift (default); SE(3) is rigid-only")
+    p.add_argument("--posegraph-every", type=int, default=8,
+                   help="keyframe selection period (frames)")
     p.add_argument("--tuned", action="store_true",
                    help="apply core/config.py tune_for_tpu: in-step BA every "
                         "8, 512-slot tables, 6/4 LK iterations")
@@ -104,10 +111,8 @@ def make_sequence(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, todo in (("plot", args.plot or args.plot_live),
-                       ("posegraph", args.posegraph)):
-        if todo:
-            raise NotImplementedError(f"--{flag}: {_TODO[flag]}")
+    if args.plot or args.plot_live:
+        raise NotImplementedError(f"--plot: {_TODO['plot']}")
     t_start = time.time()
 
     from .core.camera import Camera
@@ -134,7 +139,9 @@ def main(argv=None):
         vo, spec.frames(), seed=args.seed, bootstrap_stride=stride,
         verbose=not args.quiet, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume_from=args.resume,
-        ba_every=args.ba_every, ba_window=args.ba_window)
+        ba_every=args.ba_every, ba_window=args.ba_window,
+        posegraph=args.posegraph, posegraph_every=args.posegraph_every,
+        posegraph_method=args.posegraph_method)
 
     est = result.positions
     print(f"\nVO pipeline executed over {spec.num_frames} frames")
@@ -144,13 +151,22 @@ def main(argv=None):
     gt = spec.gt_positions
     gt_matched = np.stack([gt[r.frame] for r in result.records])
     print(f"ATE RMSE (Sim3-aligned): {ate_rmse(est, gt_matched):.3f} m")
+    refined = result.refined_positions
+    if refined is not None:
+        print(f"ATE RMSE after pose-graph refinement: "
+              f"{ate_rmse(refined, gt_matched):.3f} m")
+    elif args.posegraph:
+        print("pose-graph refinement: none (too few keyframes or verified "
+              "loop edges)")
 
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
-            for r in result.records:
+            for k, r in enumerate(result.records):
                 f.write(json.dumps({
                     "frame": r.frame,
                     "position": r.T_WC[:3, 3].tolist(),
+                    "refined_position": (None if refined is None
+                                         else refined[k].tolist()),
                     "n_inliers": r.n_inliers,
                     "n_tracked": r.n_tracked,
                     "status": r.status,

@@ -55,7 +55,7 @@ from monocular_visual_odometry_va4mr_torch.core.camera import Camera
 from monocular_visual_odometry_va4mr_torch.core.state import FrameState
 from monocular_visual_odometry_va4mr_torch.dataio import synthetic
 from monocular_visual_odometry_va4mr_torch.pipeline import (
-    ba_refine, checkpoint, runner, scan_driver)
+    ba_refine, checkpoint, posegraph_runner, runner, scan_driver)
 from monocular_visual_odometry_va4mr_torch.pipeline.vo import VisualOdometry
 
 torch.set_num_threads(1)
@@ -397,8 +397,10 @@ def test_checkpoint_round_trip_of_a_reference_state(tmp_path, scene, frames,
     with pytest.raises(ValueError, match="shape"):
         checkpoint.restore(str(tmp_path), tstate.replace(
             lm_xyz=torch.zeros(3, 3)))
-    with pytest.raises(NotImplementedError):
-        checkpoint.save(str(tmp_path), tstate, 7, bank=object())
+    # A bank with no keyframe yet is not written (as in the reference).
+    empty = posegraph_runner.KeyframeBank(make_tvo(scene))
+    checkpoint.save(str(tmp_path), tstate, 7, records=records, bank=empty)
+    assert checkpoint.restore_aux(str(tmp_path), empty.vo)[2] is None
 
     i = STRIDE + 1
     js = jvo.step(jstate, frames[i], jax.random.fold_in(key, i))

@@ -201,8 +201,7 @@ def test_cli_synthetic_run_ends_with_ate(capsys, tmp_path):
     assert "ATE RMSE (Sim3-aligned)" in out and "LOST frames: 0" in out
     assert res.num_lost() == 0 and len(res.records) == 9 - 6
     assert len(metrics.read_text().splitlines()) == 3
-    for argv in (["--dataset", "kitti"], ["--dataset", "synthetic",
-                                          "--posegraph"],
+    for argv in (["--dataset", "kitti"],
                  ["--dataset", "synthetic", "--plot", "x.png"]):
         with pytest.raises(NotImplementedError):
             tcli.main(argv + ["--device", "cpu"])
