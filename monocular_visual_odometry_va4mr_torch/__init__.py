@@ -2,19 +2,16 @@
 
 The JAX package ``monocular_visual_odometry_va4mr_tpu`` is the reference this
 port is held against; the layout mirrors it (``core/``, ``ops/``,
-``backend/``, ``pipeline/``) so every module's counterpart sits at the same
-path.  Plain tensor code is PyTorch; each Pallas kernel of the reference is a
+``backend/``, ``pipeline/``, ``dataio/``, ``evalx/``, ``viz/``,
+``parallel/``), so every module's counterpart sits at the same path.  Plain
+tensor code is PyTorch; each Pallas kernel of the reference is a
 hand-written CUDA kernel for Hopper, built with ``nvcc`` at first use:
 ``ops/klt_pallas2.py::_klt2_kernel`` as ``csrc/klt_lk.cu`` and
-``ops/klt_pallas.py::_klt_kernel`` as ``csrc/klt_v1.cu``.
+``ops/klt_pallas.py::_klt_kernel`` as ``csrc/klt_v1.cu``.  The native PNG
+decoder is host C++, ``csrc/mvo_io.cpp``, built with ``g++`` at first use.
 
-This package imports ``torch`` and never ``jax``.
-
-Ported so far: the KLT bootstrap and the per-frame step with in-step
-windowed BA (``pipeline/vo.py``) on the ``pallas2``, ``pallas`` and ``xla``
-trackers; the host runner with recovery, host-side BA and checkpoints
-(``pipeline/runner.py``), the block driver (``pipeline/scan_driver.py``) and
-the CLI (``run.py``).  Entry points run on ``cuda`` unless asked otherwise.
+This package imports ``torch`` and never ``jax``.  Entry points run on
+``cuda`` unless asked otherwise.
 """
 import torch as _torch
 

@@ -10,7 +10,7 @@ gauge), solves and back-substitutes.  Huber weights on the pixel residual.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,9 +67,14 @@ def _residuals_and_jacobians(window: BAWindow, cam: Camera, huber_px: float):
 
 
 def build_normal_blocks(window: BAWindow, cam: Camera, *,
-                        huber_px: float = 3.0, damping: float = 1e-4):
+                        huber_px: float = 3.0, damping: float = 1e-4,
+                        camera_damping: Optional[float] = None):
     """Returns (S (W,W,6,6), rhs (W,6), Hpp_inv (L,3,3), Hcp (W,L,6,3),
-    b_p (L,3), cost ())."""
+    b_p (L,3), cost ()).  ``camera_damping`` (``damping`` when None) goes on
+    the diagonal of S: a landmark shard that is summed with others adds it
+    on one shard only (``parallel/ba_sharded.py``)."""
+    if camera_damping is None:
+        camera_damping = damping
     r, Jc, Jp, w = _residuals_and_jacobians(window, cam, huber_px)
     Hcc = torch.einsum("wl,wlai,wlaj->wij", w, Jc, Jc)
     Hpp = torch.einsum("wl,wlai,wlaj->lij", w, Jp, Jp)
@@ -83,7 +88,8 @@ def build_normal_blocks(window: BAWindow, cam: Camera, *,
     S = -torch.einsum("wlik,vljk->wvij", HcpHpi, Hcp)
     W_ = window.T_CW.shape[0]
     ar = torch.arange(W_, device=dev)
-    S[ar, ar] = S[ar, ar] + Hcc + damping * torch.eye(6, dtype=dt, device=dev)
+    S[ar, ar] = S[ar, ar] + Hcc + camera_damping * torch.eye(6, dtype=dt,
+                                                              device=dev)
     rhs = b_c - torch.einsum("wlik,lk->wi", HcpHpi, b_p)
     cost = 0.5 * torch.sum(w * torch.sum(r * r, -1))
     return S, rhs, Hpp_inv, Hcp, b_p, cost

@@ -12,8 +12,11 @@ Host flow (``pipeline/runner.py``):
     and landmarks back into the state (and the refined poses into the ring).
 
 Only landmarks observed in >= ``min_obs`` window frames by their current
-slot tenant participate; everything else passes through unchanged.  The
-landmark-sharded variant (``mesh=``) is ROADMAP.md Queue 1 item 14.
+slot tenant participate; everything else passes through unchanged.  With a
+1-D device mesh or a process group (``mesh=``), every rank runs
+``parallel.ba_sharded.run_ba_sharded`` on its block of the landmark axis,
+and one all-gather of the refined blocks folds them back into the
+replicated state.
 """
 from __future__ import annotations
 
@@ -57,11 +60,9 @@ def refine(state: FrameState, ring: BARing, cam: Camera, *, iters: int = 4,
 
     Returns the state with refined ``T_CW`` and ``lm_xyz`` (only landmarks
     that participated are touched), and rewrites ``ring.poses`` with the
-    refined window poses."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "landmark-sharded BA (mesh=) is ROADMAP.md Queue 1 item 14 "
-            "(parallel/); the port runs BA on one device")
+    refined window poses.  ``mesh``: a 1-D device mesh or process group
+    whose ranks share the solve (every rank calls this with the same
+    state and ring)."""
     W = len(ring)
     if W < 3:
         return state
@@ -78,7 +79,10 @@ def refine(state: FrameState, ring: BARing, cam: Camera, *, iters: int = 4,
         lm_xyz=state.lm_xyz,
         obs_uv=torch.from_numpy(np.stack(ring.obs_uv)).to(dev),
         obs_mask=torch.from_numpy(obs_mask & participate[None, :]).to(dev))
-    out, _ = ba.run_ba(window, cam, iters=iters, huber_px=huber_px)
+    if mesh is None:
+        out, _ = ba.run_ba(window, cam, iters=iters, huber_px=huber_px)
+    else:
+        out = _run_sharded(window, cam, mesh, iters=iters, huber_px=huber_px)
 
     part = torch.from_numpy(participate).to(dev)
     lm_xyz = torch.where(part[:, None], out.lm_xyz, state.lm_xyz)
@@ -86,3 +90,19 @@ def refine(state: FrameState, ring: BARing, cam: Camera, *, iters: int = 4,
     for k in range(W):
         ring.poses[k] = refined[k]
     return state.replace(T_CW=out.T_CW[-1], lm_xyz=lm_xyz)
+
+
+def _run_sharded(window: ba.BAWindow, cam: Camera, mesh, **kw) -> ba.BAWindow:
+    """``run_ba`` with the landmark axis split over the ranks of ``mesh``;
+    the refined blocks are gathered back into the whole window."""
+    import torch.distributed as dist
+
+    from ..parallel import ba_sharded, multihost
+
+    group = multihost.as_group(mesh)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    local = ba_sharded.shard_window(window, rank, world)
+    out, _ = ba_sharded.run_ba_sharded(local, cam, group=group, **kw)
+    blocks = multihost.all_gather(out.lm_xyz.contiguous(), group)
+    lm_xyz = torch.cat(blocks)[:window.lm_xyz.shape[0]]
+    return window._replace(T_CW=out.T_CW, lm_xyz=lm_xyz)

@@ -30,8 +30,11 @@ POSEGRAPH_STREAM = 20_000_000  # generator stream of the loop verification
 
 def frame_seed(seed: int, stream: int) -> int:
     """The 63-bit generator seed of one call: distinct for every (seed,
-    stream) pair with 0 <= stream < 2**32."""
-    return ((seed & 0x7FFFFFFF) << 32) | (stream & 0xFFFFFFFF)
+    stream) pair with 0 <= stream < 2**32.  The seed is mixed into the low
+    32 bits too, the only ones the CPU generator (a Mersenne twister) keeps;
+    seed 0 gives ``stream`` itself."""
+    s = seed & 0x7FFFFFFF
+    return (s << 32) | ((stream + s * 0x9E3779B1) & 0xFFFFFFFF)
 
 
 def frame_generator(seed: int, stream: int, device) -> torch.Generator:

@@ -2,6 +2,10 @@
 
 Examples:
   python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset kitti \
+      --data-root ./data/kitti --plot out/interface_plot.png
+  python -m monocular_visual_odometry_va4mr_torch.run --dataset parking \
+      --data-root ./data/parking --max-frames 200 --bootstrap klt
   python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
       --max-frames 40 --ba-every 8 --checkpoint-dir ckpt/ --checkpoint-every 20
   python -m monocular_visual_odometry_va4mr_torch.run --dataset synthetic \
@@ -10,30 +14,26 @@ Examples:
       --bootstrap sift --posegraph --posegraph-method sim3
 
 The pipeline runs on ``--device`` (``cuda`` by default; ``cpu`` only when
-asked).  Only the synthetic corridor runs so far: the KITTI / Malaga /
-Parking loaders and the native PNG decoder and the dashboard (``--plot*``)
-are ROADMAP.md Queue 1 items still to port and raise
-``NotImplementedError``.
+asked).  PNG frames are decoded by the native decoder (``dataio/native_io``,
+built at first use); other formats need PIL.  ``--plot`` / ``--plot-live``
+need matplotlib, imported only when asked for.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
-
-_TODO = {
-    "datasets": "the KITTI / Malaga / Parking loaders and the native PNG "
-                "decoder (ROADMAP.md Queue 1, dataset loaders)",
-    "plot": "the dashboard (ROADMAP.md Queue 1, viz)",
-}
 
 
 def build_parser():
     p = argparse.ArgumentParser(description="Monocular VO on PyTorch / CUDA")
     p.add_argument("--dataset", required=True,
                    choices=["kitti", "malaga", "parking", "synthetic"])
+    p.add_argument("--data-root", default=None,
+                   help="dataset root (default ./data/<dataset>)")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--bootstrap", choices=["sift", "klt"], default=None,
                    help="override the preset bootstrap method")
@@ -42,7 +42,11 @@ def build_parser():
     p.add_argument("--plot", default=None,
                    help="write the 2x2 dashboard PNG here at the end")
     p.add_argument("--plot-live", action="store_true",
-                   help="update the dashboard every frame")
+                   help="update the dashboard every frame (interactive "
+                        "backend if available, else a periodic PNG to "
+                        "--plot)")
+    p.add_argument("--plot-every", type=int, default=1,
+                   help="with --plot-live on agg: save the PNG every N frames")
     p.add_argument("--metrics-json", default=None,
                    help="write per-frame metrics as JSON lines")
     p.add_argument("--seed", type=int, default=0)
@@ -97,22 +101,56 @@ class SyntheticSpec:
     def gt_positions(self):
         return self.scene.poses_WC[:, :3, 3]
 
+    @property
+    def gt_xz(self):
+        return self.scene.poses_WC[:, [0, 2], 3]
+
+    def load_frame(self, i):
+        return self._synthetic.render_frame(self.scene, i)
+
     def frames(self, start=0):
         for i in range(start, self.scene.num_frames):
             yield i, self._synthetic.render_frame(self.scene, i)
 
 
 def make_sequence(args):
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {args.dataset}: "
-                                  f"{_TODO['datasets']}")
-    return SyntheticSpec(args.seed, args.max_frames or 100)
+    if args.dataset == "synthetic":
+        return SyntheticSpec(args.seed, args.max_frames or 100)
+    from .dataio import datasets
+
+    if args.data_root is None:
+        args.data_root = f"./data/{args.dataset}"
+    spec = datasets.LOADERS[args.dataset](args.data_root)
+    if args.max_frames:
+        spec.num_frames = min(spec.num_frames, args.max_frames)
+        spec.frame_paths = spec.frame_paths[: spec.num_frames]
+    return spec
+
+
+def live_dashboard(args, spec, cfg):
+    """The per-frame ``on_frame`` callback of ``--plot-live``, and its
+    dashboard."""
+    from .viz.dashboard import LiveDashboard
+
+    live = LiveDashboard(
+        out_path=args.plot or "out/interface_plot.png",
+        gt_xz=spec.gt_xz if spec.gt_positions is not None else None,
+        max_dist=cfg.landmarks.max_dist, save_every=args.plot_every)
+
+    def on_frame(records, snap):
+        live.update(
+            image=snap["image"], inlier_uv=snap["inlier_uv"],
+            outlier_uv=snap["outlier_uv"],
+            trajectory=np.stack([r.T_WC[:3, 3] for r in records]),
+            landmark_xyz=snap["landmark_xyz"],
+            num_tracked=np.array([r.n_tracked for r in records]),
+            frame_index=records[-1].frame)
+
+    return live, on_frame
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.plot or args.plot_live:
-        raise NotImplementedError(f"--plot: {_TODO['plot']}")
     t_start = time.time()
 
     from .core.camera import Camera
@@ -134,10 +172,13 @@ def main(argv=None):
           f"bootstrap {spec.bootstrap_frames}, klt={vo.klt_backend} "
           f"bootstrap={cfg.bootstrap_method} device={vo.device}")
 
+    live, on_frame = (live_dashboard(args, spec, cfg) if args.plot_live
+                      else (None, None))
     stride = spec.bootstrap_frames[1] - spec.bootstrap_frames[0]
     result = run_sequence(
         vo, spec.frames(), seed=args.seed, bootstrap_stride=stride,
-        verbose=not args.quiet, checkpoint_dir=args.checkpoint_dir,
+        verbose=not args.quiet, on_frame=on_frame,
+        checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume_from=args.resume,
         ba_every=args.ba_every, ba_window=args.ba_window,
         posegraph=args.posegraph, posegraph_every=args.posegraph_every,
@@ -149,13 +190,14 @@ def main(argv=None):
           f"(steady state, device-synchronized)")
     print(f"LOST frames: {result.num_lost()}")
     gt = spec.gt_positions
-    gt_matched = np.stack([gt[r.frame] for r in result.records])
-    print(f"ATE RMSE (Sim3-aligned): {ate_rmse(est, gt_matched):.3f} m")
     refined = result.refined_positions
-    if refined is not None:
-        print(f"ATE RMSE after pose-graph refinement: "
-              f"{ate_rmse(refined, gt_matched):.3f} m")
-    elif args.posegraph:
+    if gt is not None:
+        gt_matched = np.stack([gt[r.frame] for r in result.records])
+        print(f"ATE RMSE (Sim3-aligned): {ate_rmse(est, gt_matched):.3f} m")
+        if refined is not None:
+            print(f"ATE RMSE after pose-graph refinement: "
+                  f"{ate_rmse(refined, gt_matched):.3f} m")
+    if refined is None and args.posegraph:
         print("pose-graph refinement: none (too few keyframes or verified "
               "loop edges)")
 
@@ -173,6 +215,25 @@ def main(argv=None):
                     "wall_ms": r.wall_ms,
                 }) + "\n")
         print(f"metrics written to {args.metrics_json}")
+
+    if live is not None:
+        live.close()
+    if args.plot:
+        from .viz.dashboard import render_dashboard
+
+        os.makedirs(os.path.dirname(args.plot) or ".", exist_ok=True)
+        final = result.final_snapshot
+        render_dashboard(
+            image=final["image"], inlier_uv=final["inlier_uv"],
+            outlier_uv=final["outlier_uv"], trajectory=est,
+            landmark_xyz=final["landmark_xyz"],
+            # Pane (1,0): tracked-landmark counts, windowed to the last 20
+            # inside the renderer.
+            num_tracked=np.array([r.n_tracked for r in result.records]),
+            frame_index=result.records[-1].frame, out_path=args.plot,
+            gt_xz=spec.gt_xz if gt is not None else None,
+            max_dist=cfg.landmarks.max_dist)
+        print(f"dashboard written to {args.plot}")
 
     print(f"Time elapsed: {(time.time() - t_start) / 60:.2f} min")
     return result

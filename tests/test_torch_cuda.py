@@ -480,3 +480,59 @@ def test_posegraph_on_cuda_matches_cpu(cuda):
     for a, b in zip(costs_c, costs_g):
         assert b[-1] < 0.5 * b[0]
         assert ((a - b).abs() <= 1e-4 * a[0]).all()
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A one-rank NCCL process group (file store under ``tmp_path``)."""
+    import torch.distributed as dist
+
+    from monocular_visual_odometry_va4mr_torch.parallel import multihost
+
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0)
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def nccl_window(cuda):
+    from monocular_visual_odometry_va4mr_torch.backend import ba
+    from monocular_visual_odometry_va4mr_torch.parallel import traj_ba
+
+    noisy, _, cam = traj_ba.build_synthetic_traj(1, 6, 256, seed=0)
+    noisy = traj_ba.TrajSegments(*(t.to(cuda) for t in noisy))
+    win = ba.BAWindow(torch.cat([noisy.anchor_T_CW, noisy.T_CW]),
+                      noisy.lm_xyz, noisy.obs_uv[0], noisy.obs_mask[0])
+    return noisy, win, cam
+
+
+def test_ba_sharded_on_nccl_equals_run_ba(cuda, nccl_group):
+    from monocular_visual_odometry_va4mr_torch.backend import ba
+    from monocular_visual_odometry_va4mr_torch.parallel import (ba_sharded,
+                                                                multihost)
+
+    _, win, cam = nccl_window(cuda)
+    multihost.COMM.clear()
+    out, costs = ba_sharded.run_ba_sharded(ba_sharded.shard_window(win, 0, 1),
+                                           cam, iters=5)
+    W = win.T_CW.shape[0]
+    assert multihost.COMM == {("all_reduce", 4 * (36 * W * W + 6 * W + 1)): 5}
+    ref, ref_costs = ba.run_ba(win, cam, iters=5)
+    assert out.T_CW.is_cuda
+    assert (out.T_CW - ref.T_CW).abs().max() <= 1e-5
+    assert (out.lm_xyz - ref.lm_xyz).abs().max() <= 1e-4
+    torch.testing.assert_close(costs, ref_costs, rtol=1e-3, atol=0)
+
+
+def test_traj_ba_on_nccl_equals_segment_ba(cuda, nccl_group):
+    from monocular_visual_odometry_va4mr_torch.backend import ba
+    from monocular_visual_odometry_va4mr_torch.parallel import (multihost,
+                                                                traj_ba)
+
+    noisy, win, cam = nccl_window(cuda)
+    multihost.COMM.clear()
+    seg, _ = traj_ba.run_traj_ba(traj_ba.shard_segments(noisy, 0, 1), cam,
+                                 iters=4)
+    assert multihost.COMM == {("all_reduce", 4): 4}  # one rank: no halo
+    ref, _ = ba.run_ba(win, cam, iters=4, damping=1e-2, n_fixed=2)
+    assert (seg.T_CW - ref.T_CW[2:]).abs().max() <= 2e-4

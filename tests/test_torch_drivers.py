@@ -348,7 +348,7 @@ def test_refine_matches_reference(rng):
                                np.stack(rings[0].poses), rtol=0, atol=1e-4)
     moved = np.abs(out_t.lm_xyz.numpy() - Xn).max(1) > 0
     assert moved.sum() > K // 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         ba_refine.refine(ts, rings[1], Camera.from_matrix(cam_K),
                          mesh=object())
 
@@ -410,3 +410,15 @@ def test_checkpoint_round_trip_of_a_reference_state(tmp_path, scene, frames,
     assert int(ts.n_tracked) == int(js.n_tracked)
     np.testing.assert_allclose(ts.T_CW.numpy(), np.asarray(js.T_CW), rtol=0,
                                atol=1e-4)
+
+
+def test_frame_generators_differ_by_run_seed():
+    """Two runs seeded apart draw apart: the CPU generator keeps only the low
+    32 bits of its seed, so the run seed must reach them."""
+    assert runner.frame_seed(0, 7) == 7
+    seeds = {runner.frame_seed(sd, st) for sd in range(4) for st in range(4)}
+    assert len(seeds) == 16
+    assert len({x & 0xFFFFFFFF for x in seeds}) == 16
+    draws = [torch.rand(4, generator=runner.frame_generator(sd, 5, "cpu"))
+             for sd in (0, 1)]
+    assert not torch.equal(*draws)

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``monocular_visual_odometry_va4mr_torch``
-and neither ``chip_smoke.py`` nor ``kernel_ab.py`` imports ``jax``, the JAX
-package or ``cv2`` (the card's machine has none).  The check reads the source text with ``ast``; it imports
-nothing."""
+and none of ``chip_smoke.py``, ``kernel_ab.py`` and ``stress_diag.py``
+imports ``jax``, the JAX package or ``cv2`` (the card's machine has none).
+The check reads the source text with ``ast``; it imports nothing."""
 import ast
 import pathlib
 
@@ -12,7 +12,8 @@ PORT = ROOT / "monocular_visual_odometry_va4mr_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cv2",
              "monocular_visual_odometry_va4mr_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "kernel_ab.py"]
+                                        ROOT / "kernel_ab.py",
+                                        ROOT / "stress_diag.py"]
 
 
 def imported_modules(path):
@@ -33,7 +34,16 @@ def test_sources_are_found():
     names = {p.name for p in SOURCES}
     assert {"vo.py", "runner.py", "klt_pallas.py", "sift.py", "match.py",
             "posegraph.py", "posegraph_sim3.py", "posegraph_runner.py",
-            "chip_smoke.py", "kernel_ab.py"} <= names
+            "datasets.py", "native_io.py", "dashboard.py", "seq_dp.py",
+            "multi_seq.py", "ba_sharded.py", "traj_ba.py", "multihost.py",
+            "chip_smoke.py", "kernel_ab.py", "stress_diag.py"} <= names
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    jax_pkg = ROOT / "monocular_visual_odometry_va4mr_tpu"
+    missing = [str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
+               if not (PORT / p.relative_to(jax_pkg)).exists()]
+    assert not missing, f"modules of the JAX package not ported: {missing}"
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -194,14 +194,16 @@ def test_entry_points_default_to_cuda(scene):
 
 def test_cli_synthetic_run_ends_with_ate(capsys, tmp_path):
     metrics = tmp_path / "m.jsonl"
+    plot = tmp_path / "x.png"
     res = tcli.main(["--dataset", "synthetic", "--max-frames", "9",
                      "--device", "cpu", "--quiet", "--ba-every", "4",
-                     "--metrics-json", str(metrics)])
+                     "--metrics-json", str(metrics), "--plot", str(plot)])
     out = capsys.readouterr().out
     assert "ATE RMSE (Sim3-aligned)" in out and "LOST frames: 0" in out
     assert res.num_lost() == 0 and len(res.records) == 9 - 6
     assert len(metrics.read_text().splitlines()) == 3
-    for argv in (["--dataset", "kitti"],
-                 ["--dataset", "synthetic", "--plot", "x.png"]):
-        with pytest.raises(NotImplementedError):
-            tcli.main(argv + ["--device", "cpu"])
+    assert plot.stat().st_size > 10000
+    # A real dataset reads --data-root (default ./data/<dataset>).
+    with pytest.raises(FileNotFoundError, match="kitti"):
+        tcli.main(["--dataset", "kitti", "--data-root",
+                   str(tmp_path / "kitti"), "--device", "cpu"])
