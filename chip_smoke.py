@@ -31,6 +31,18 @@ exits nonzero:
    of the path (``bench.py``'s gate without its reference-CPU term).
    ``torch.profiler`` traces 8 of the steps (left out of the step times):
    device time per step, all kernels and ``klt_lk``'s alone.
+3b. A preset at its own geometry: ``tools/bench_datasets``' Malaga run
+   (``tune_for_tpu(malaga_config())``, the only preset with ``mid_iters=4``,
+   KLT bootstrap, quality 0.03) on a 95-frame textured scene (seed 11) at
+   600x800: bootstrap over frames 0..4, steps to frame 12, then the block
+   driver over frames 12..94, best of 3, and 8 frames under the profiler.
+   ``klt_lk`` must have launched 3 times per step plus 3 per bootstrap hop;
+   health: 0 LOST, a finite trajectory and ATE <= 2% of the path over the
+   timed frames, and no LOST warm-up frame.  Then ``klt_lk`` against its
+   plain version at the preset's three calls, as in phase 2: the 600x800
+   plane (6 iterations), the 150x200 mid plane (4) and the backward pass
+   (4).  The JAX record of the same run (``BENCH_datasets.json``) is
+   printed beside it, read only.
 4. The block driver on the same path: ``scan_driver.run_streaming`` over
    frames 5..99 uploaded as uint8, blocks of 16 with a padded tail.
    ``klt_lk`` must have launched 3 times per frame; statuses equal to, and
@@ -130,7 +142,6 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
-import multiprocessing
 import os
 import shutil
 import statistics
@@ -144,11 +155,19 @@ import zlib
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+try:
+    from monocular_visual_odometry_va4mr_torch.tools.harness import (
+        build_kernels as harness_build, device_line, device_profile, healthy,
+        host_ms, positions_of, profile_calls, render_frames,
+        trajectory_health)
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: run from a checkout of the repo ({e})")
+
 NUM_FRAMES = 100
 IMAGE_SHAPE = (376, 1241)
 BOOTSTRAP_STRIDE = 4
 SEED = 11
-ATE_BOUND_FRAC = 0.02
 TIMED_START = 12  # frames before this warm up the step (bench.py)
 N_FEATURES = 1024  # 512 landmark + 512 candidate slots at the bench point
 POS_TOL_PX = 1e-3  # kernel vs plain version, features both accept
@@ -167,6 +186,8 @@ PROFILE_START, PROFILE_STEPS = 40, 8  # main-path steps under torch.profiler
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# Phase 3b: a preset at its own geometry through tools/bench_datasets.
+PRESET, PRESET_FRAMES = "malaga", 95
 # Phase B: the loop stream with the pose graph.
 LOOP_FRAMES = 640
 LOOP_LAPS = 1.25
@@ -224,27 +245,6 @@ KERNELS = {
 }
 
 
-def _import_port():
-    sys.path.insert(0, REPO)
-    try:
-        import monocular_visual_odometry_va4mr_torch  # noqa: F401
-    except ImportError as e:
-        raise SystemExit(f"chip_smoke: run from a checkout of the repo ({e})")
-
-
-def _render(args):
-    scene, i = args
-    return scene.render(i)
-
-
-def render_frames(scene, n):
-    """Frames 0..n-1 of ``scene``, rendered by a spawn pool."""
-    workers = max(1, min(8, os.cpu_count() or 1))
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers) as pool:
-        return pool.map(_render, [(scene, i) for i in range(n)])
-
-
 def render_scene():
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
 
@@ -253,27 +253,15 @@ def render_scene():
     return scene, render_frames(scene, NUM_FRAMES)
 
 
-def device_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()
-    return out[0]
-
-
 def build_kernels():
     """One nvcc per kernel source, all started together."""
-    from monocular_visual_odometry_va4mr_torch import _build
-
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        futs = {name: pool.submit(_build.build, name) for name in KERNELS}
-        for name, fut in futs.items():
-            lib, log, build_s = fut.result()
-            print(f"build {name} {build_s:.2f} s -> "
-                  f"{os.path.relpath(lib, REPO)}")
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line or "stack" in line:
-                    print("  ptxas " + line.strip())
+    for name, (lib, log, build_s) in harness_build(DEVICE,
+                                                   tuple(KERNELS)).items():
+        print(f"build {name} {build_s:.2f} s -> "
+              f"{os.path.relpath(lib, REPO)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                print("  ptxas " + line.strip())
 
 
 def call_time_ms(fn, runs=20):
@@ -388,7 +376,7 @@ def kernel_case(name, kernel, plain, args, n, offset_cols, *, num_iters,
 
     dev_ms = device_time_ms(run_kernel)
     res = dict(
-        name=name, shape=list(args[0].shape), n=n,
+        name=name, shape=list(args[0].shape), n=n, num_iters=num_iters,
         both_ok=int(both.sum()), ok_agree=float((ok_k == ok_p).float().mean()),
         pos_max=float(d.max()), pos_median=float(d.median()),
         resid_max=float((out_k[both, 3] - out_p[both, 3]).abs().max()),
@@ -404,9 +392,10 @@ def kernel_case(name, kernel, plain, args, n, offset_cols, *, num_iters,
 
 
 def bench_inputs(frames, vo):
-    """Frames 12 and 13 of the scene as the main path sees them: flat
-    pyramids, the main path's own corners (filled to N with random
-    positions) and the coarse prior."""
+    """Frames 12 and 13 of the scene as ``vo``'s path sees them: flat
+    pyramids, its own corners (filled to N with random positions), the
+    coarse prior, and the LK iterations of its three calls (full-res and
+    mid forward, backward) from its config."""
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
@@ -416,7 +405,7 @@ def bench_inputs(frames, vo):
     pyr_b = vo.make_pyramid(vo._as_image(frames[TIMED_START + 1]))
     uv, _, det_valid = vo._detect(pyr_a[0])
     gen = torch.Generator(device=dev).manual_seed(0)
-    H, W = IMAGE_SHAPE
+    H, W = vo.config.image_shape
     fill = torch.rand((N_FEATURES - uv.shape[0], 2), generator=gen,
                       device=dev) * torch.tensor([W, H], device=dev)
     pts = torch.cat([uv, fill], 0)
@@ -424,33 +413,38 @@ def bench_inputs(frames, vo):
                                              device=dev)])
     flow = v1.coarse_flow_volume(pyr_a[2], pyr_b[2])
     prior = v1.sample_map_onehot(flow, pts / 16.0) * 16.0
-    return pyr_a, pyr_b, pts, valid, prior
+    k = vo.config.klt  # as pipeline/vo.py's _track and _track_fb cap them
+    iters = (min(k.num_iters, 8), min(k.mid_iters or k.num_iters, 8),
+             min(k.num_iters, k.fb_iters, 8))
+    return pyr_a, pyr_b, pts, valid, prior, iters
 
 
-def case_planes(pyr_a, pyr_b, pts, prior):
+def case_planes(pyr_a, pyr_b, pts, prior, iters):
     """(name, template plane, search plane, positions, prior, iterations) of
-    the three main-path calls: /4 and full-res forward, full-res backward."""
-    return [("full_res_forward", pyr_a[0], pyr_b[0], pts, prior, 6),
+    a path's three calls: /4 and full-res forward, full-res backward."""
+    full, mid, back = iters
+    return [("full_res_forward", pyr_a[0], pyr_b[0], pts, prior, full),
             ("quarter_res_forward", pyr_a[1], pyr_b[1], pts / 4.0,
-             prior / 4.0, 6),
+             prior / 4.0, mid),
             ("full_res_backward_swap", pyr_b[0], pyr_a[0], pts + prior,
-             -prior, 4)]
+             -prior, back)]
 
 
-def kernel_calls(name, inputs):
-    """The main path's three calls of kernel ``name`` on ``inputs``: (case,
-    wrapper, plain version, args, iterations, keyword args, bytes of one
-    input row)."""
+def kernel_calls(name, inputs, prefix=""):
+    """A path's three calls of kernel ``name`` on ``inputs`` (cases named
+    ``prefix`` + plane): (case, wrapper, plain version, args, iterations,
+    keyword args, bytes of one input row)."""
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
 
-    pyr_a, pyr_b, pts, valid, prior = inputs
+    pyr_a, pyr_b, pts, valid, prior, path_iters = inputs
     gates = dict(eps=0.01, min_eig_threshold=1e-4, max_residual=20.0)
     calls = []
     for case, tmpl, srch, p, pr, iters in case_planes(pyr_a, pyr_b, pts,
-                                                      prior):
+                                                      prior, path_iters):
+        case = prefix + case
         if name == "klt_lk":
             po, pp = k2._origin_and_phase(p, 15)
             qo, qp = k2._origin_and_phase(p + pr, 15)
@@ -468,49 +462,12 @@ def kernel_calls(name, inputs):
     return calls
 
 
-def phase_kernels(name, inputs):
-    """Kernel ``name`` against its plain version at the main path's three
-    calls."""
+def phase_kernels(name, inputs, prefix=""):
+    """Kernel ``name`` against its plain version at a path's three calls."""
     return [kernel_case(case, kernel, plain, args, args[2].shape[0], [0, 1],
                         num_iters=iters, in_row_bytes=row_bytes, extra=extra)
             for case, kernel, plain, args, iters, extra, row_bytes
-            in kernel_calls(name, inputs)]
-
-
-def trajectory_health(scene, frame_ids, est, statuses):
-    """LOST count, finiteness and ATE of camera positions ``est``."""
-    from monocular_visual_odometry_va4mr_torch.evalx import ate
-
-    gt = scene.poses_WC[list(frame_ids), :3, 3]
-    finite = bool(np.all(np.isfinite(est)))
-    ate_rmse = float(ate.ate_rmse(est, gt)) if finite else float("nan")
-    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
-    return dict(frames=len(statuses), lost=sum(1 for s in statuses if s != 0),
-                finite=finite, ate=ate_rmse, ate_bound=ATE_BOUND_FRAC * path,
-                path=path)
-
-
-def healthy(res):
-    return (not res["lost"] and res["finite"]
-            and res["ate"] <= res["ate_bound"])
-
-
-def device_profile(prof, steps, kernel):
-    """Device time per step from a finished ``torch.profiler`` window: all
-    kernels together and those whose name holds ``kernel`` (ms, calls)."""
-    total_us = kernel_us = 0.0
-    calls = 0
-    for evt in prof.key_averages():
-        us = evt.self_device_time_total
-        total_us += us
-        if kernel in evt.key:
-            kernel_us += us
-            calls += evt.count
-    return dict(steps=steps, device_ms_per_step=total_us / 1e3 / steps,
-                kernel=kernel, kernel_ms_per_step=kernel_us / 1e3 / steps,
-                kernel_calls_per_step=calls / steps,
-                kernel_ms_per_call=kernel_us / 1e3 / calls if calls else None,
-                device_time_seen=total_us > 0)
+            in kernel_calls(name, inputs, prefix)]
 
 
 def phase_main_path(scene, frames, vo):
@@ -565,18 +522,47 @@ def phase_main_path(scene, frames, vo):
     return res
 
 
+def phase_presets(smi):
+    """Phase 3b: ``tools/bench_datasets``' Malaga run at full width (600x800,
+    95 frames, ``tune_for_tpu(malaga_config())``, ``mid_iters=4``), its
+    ``klt_lk`` launches counted from 0 over the run and gated at 3 per step
+    and per bootstrap hop, the health gate over the warm-up and the timed
+    frames; then ``klt_lk`` against its plain version at the preset's three
+    calls (600x800 forward, 150x200 at 4 iterations, backward)."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+    from monocular_visual_odometry_va4mr_torch.tools import bench_datasets
+
+    t0 = time.perf_counter()
+    scene, frames, vo = bench_datasets.make_case(PRESET, PRESET_FRAMES,
+                                                 DEVICE)
+    render_s = time.perf_counter() - t0
+    boots, steps = CountingBootstrap(vo), CountingStep(vo)
+    torch.cuda.synchronize()
+    k2.klt_lk.launches = 0
+    line = bench_datasets.run_case(PRESET, scene, frames, vo, smi)
+    launches = k2.klt_lk.launches
+    expected = 3 * (steps.calls + boots.hops)
+    line.update(render_s=render_s, launches=launches,
+                launches_expected=expected, steps_run=steps.calls,
+                bootstrap_hops=boots.hops)
+    print(f"preset_{PRESET} " + json.dumps(line), flush=True)
+    if launches != expected or not launches:
+        raise RuntimeError(f"klt_lk launched {launches} times on the "
+                           f"{PRESET} path, expected {expected}")
+    if not (line["healthy"] and line["lost_warmup"] == 0):
+        raise RuntimeError(f"{PRESET} preset unhealthy: {line}")
+    cases = phase_kernels("klt_lk", bench_inputs(frames, vo), f"{PRESET}_")
+    return dict(path=line, cases=cases)
+
+
 def pose_WC(T_CW):
     """(4, 4) T_WC of a T_CW pose."""
     T = np.eye(4)
     T[:3, :3] = T_CW[:3, :3].T
     T[:3, 3] = -T_CW[:3, :3].T @ T_CW[:3, 3]
     return T
-
-
-def positions_of(Ts):
-    """Camera positions of (F, 4, 4) T_CW poses."""
-    return np.stack([-T[:3, :3].T @ T[:3, 3]
-                     for T in np.asarray(Ts, np.float64)])
 
 
 def phase_stream(scene, frames, vo):
@@ -836,40 +822,6 @@ def pair_keypoints(a, b):
     return torch.isfinite(best), nn, d[torch.arange(len(nn)), nn], best
 
 
-def profile_calls(fn, reps=3):
-    """Device ms and kernel launches per call of ``fn`` from
-    ``torch.profiler`` (every device event: kernels, copies, fills)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
-            len(dev) / reps)
-
-
-def host_ms(fn, reps=5):
-    """Median host ms of ``fn`` with a device sync after each call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times)
-
-
 def sift_config(scene):
     """``kitti_tuned_config()`` with its own SIFT bootstrap (phase A)."""
     from monocular_visual_odometry_va4mr_torch.core.config import (
@@ -911,7 +863,8 @@ def phase_sift(scene, frames, cam):
         f0, sift.detect_and_compute(torch.as_tensor(frames[0]), **kw))
     sift_res = dict(
         shape=list(IMAGE_SHAPE), max_features=kw["max_features"],
-        host_ms=host_ms(lambda: sift.detect_and_compute(img0, **kw)),
+        host_ms=host_ms(lambda: sift.detect_and_compute(img0, **kw), DEVICE,
+                        reps=5, warmup=1),
         device_ms=dev_ms, launches=launches,
         valid=[int(f0.valid.sum()), int(f1.valid.sum())],
         ratio_matches=int(ok.sum()),
@@ -1608,20 +1561,27 @@ def phase_parallel(ctx, frames):
     return res
 
 
-def kernel_entry(name, cases, launches):
-    """The kernel's line: its numbers at full resolution, the device time at
-    every main-path shape beside them.  ``ms`` keeps the meaning it has had
+def kernel_entry(name, cases, launches, launches_by_path=None):
+    """The kernel's line: its numbers at the main path's full resolution,
+    and beside them each case's (every shape of every path) device time,
+    host-inclusive call time and bound.  ``ms`` keeps the meaning it has had
     since the first kernel line, one call with the host's work included, and
-    equals ``call_ms``; ``device_ms`` is the kernel on the card alone."""
+    equals ``call_ms``; ``device_ms`` is the kernel on the card alone.
+    ``launches``: the main path's run; ``launches_by_path``: every path's."""
     full = cases[0]
     return dict(name=name, route="cuda", **KERNELS[name], launches=launches,
                 launches_per_step=3,
+                launches_by_path=launches_by_path or {"main_path": launches},
                 max_abs_err=max(c["pos_max"] for c in cases),
                 ms=full["call_ms"], device_ms=full["device_ms"],
                 call_ms=full["call_ms"], plain_ms=full["plain_ms"],
                 bound_ms=full["bound_ms"], bound_by=full["bound_by"],
                 bound_share=full["bound_share"], library_ms=None,
-                device_ms_by_shape={c["name"]: c["device_ms"] for c in cases})
+                device_ms_by_shape={c["name"]: c["device_ms"] for c in cases},
+                call_ms_by_shape={c["name"]: c["call_ms"] for c in cases},
+                bound_ms_by_shape={c["name"]: c["bound_ms"] for c in cases},
+                shape_by_case={c["name"]: c["shape"] + [c["num_iters"]]
+                               for c in cases})
 
 
 def main_path_vo(scene):
@@ -1647,7 +1607,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is false)")
-    _import_port()
     smi = device_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
@@ -1665,6 +1624,7 @@ def main():
     for name, phase in (
             ("kernels_klt_lk", lambda: phase_kernels("klt_lk", inputs)),
             ("main_path", lambda: phase_main_path(scene, frames, vo)),
+            ("presets", lambda: phase_presets(smi)),
             ("stream_path", lambda: phase_stream(scene, frames, vo)),
             ("kernels_klt_v1", lambda: phase_kernels("klt_v1", inputs)),
             ("sift_path", lambda: phase_sift(scene, frames, cam)),
@@ -1678,12 +1638,16 @@ def main():
         t0 = time.perf_counter()
         res[name] = phase()
         print(f"phase {name} {time.perf_counter() - t0:.1f} s", flush=True)
-    lk_cases, v1_cases = res["kernels_klt_lk"], res["kernels_klt_v1"]
+    lk_cases = res["kernels_klt_lk"] + res["presets"]["cases"]
+    v1_cases = res["kernels_klt_v1"]
     main_res, v1_res = res["main_path"], res["v1_path"]
 
     print(json.dumps({"kernels": [
-        kernel_entry("klt_lk", lk_cases, main_res["launches"]),
-        kernel_entry("klt_v1", v1_cases, v1_res["launches"]["klt_v1"])]}))
+        kernel_entry("klt_lk", lk_cases, main_res["launches"], {
+            "main_path": main_res["launches"],
+            f"presets_{PRESET}": res["presets"]["path"]["launches"]}),
+        kernel_entry("klt_v1", v1_cases, v1_res["launches"]["klt_v1"],
+                     {"v1_path": v1_res["launches"]["klt_v1"]})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -240,7 +240,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device "
                          "(torch.cuda.is_available() is false)")
-    cs._import_port()
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
 
     smi = cs.device_line()

@@ -13,11 +13,23 @@ Ground truth is returned as full (N, 3, 4) pose matrices plus the (x, z)
 pair the reference plots; a ``SequenceSpec`` carries the dataset's
 ``PipelineConfig`` preset.
 
-Decoding: ``.png`` frames always go through the native decoder
-(``dataio/native_io.py``), one at a time in ``load_frame`` and through the
-prefetching reader in ``frames()``; a PNG it does not support raises.  Other
-formats (the real Malaga extract is JPEG) go through PIL; without PIL they
-raise an ``ImportError`` that names the missing decoder.
+Decoding follows the reference's ``cv2.imread(path, IMREAD_GRAYSCALE)``
+bit for bit:
+
+  * ``frames()`` streams ``.png`` frames through the native prefetching
+    reader (``dataio/native_io.py``), as the reference's ``frames()`` does;
+    a PNG it does not support raises there.
+  * ``load_frame`` reads an 8-bit gray (or gray + alpha) PNG with the native
+    decoder.  Any other PNG (colour, palette, 16-bit, interlaced) goes
+    through PIL, and its samples are reduced to gray the way cv2's libpng
+    does: the high byte of a 16-bit sample, palette entries expanded, alpha
+    dropped, and ``(9797 R + 19234 G + 3737 B) >> 15`` (libpng's fixed-point
+    ``png_set_rgb_to_gray(1, 0.299, 0.587)``, truncated).  The native
+    decoder's colour conversion is the unrounded BT.601 float instead.
+  * Other formats (the real Malaga extract is JPEG) go through PIL; a JPEG
+    is decoded straight to its luma plane (``draft("L")``), as libjpeg does
+    for cv2.  Without PIL they raise an ``ImportError`` that names the
+    missing decoder.
 """
 from __future__ import annotations
 
@@ -47,22 +59,63 @@ def _is_png(path: str) -> bool:
     return path.lower().endswith(".png")
 
 
-def _imread_gray(path: str) -> np.ndarray:
-    """One frame as an (H, W) float32 gray image."""
-    if _is_png(path):
-        from . import native_io
+# libpng's rgb-to-gray weights in 1/32768 (png_set_rgb_to_gray(1, 0.299,
+# 0.587) as cv2 sets it; the blue weight takes the remainder).
+_RGB_TO_GRAY = (9797, 19234, 3737)
 
-        img = native_io.decode_png(path)
-        if img is None:
-            raise ValueError(f"{path}: a PNG the native decoder does not "
-                             "support (palette, interlaced or unreadable)")
-        return img
+
+def _png_header(path: str):
+    """(bit depth, colour type, interlace) of a PNG's IHDR, or None when the
+    file does not start like a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if len(head) < 29 or head[:8] != b"\x89PNG\r\n\x1a\n" \
+            or head[12:16] != b"IHDR":
+        return None
+    return head[24], head[25], head[28]
+
+
+def _pil(path: str):
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path}: decoding a non-PNG frame needs PIL "
-                          "(Pillow), which is not installed") from e
-    with Image.open(path) as im:
+        raise ImportError(f"{path}: decoding this frame needs PIL (Pillow), "
+                          "which is not installed") from e
+    return Image
+
+
+def _png_gray_like_cv2(path: str) -> np.ndarray:
+    """A PNG the native decoder does not reduce as cv2 does, decoded by PIL
+    and reduced to gray as cv2's libpng does."""
+    with _pil(path).open(path) as im:
+        if im.mode in ("I;16", "I;16B", "I"):
+            return (np.asarray(im, dtype=np.int64) >> 8).astype(np.float32)
+        if im.mode in ("L", "LA", "1"):
+            return np.asarray(im.convert("L"), dtype=np.float32)
+        rgb = np.asarray(im.convert("RGB"), dtype=np.int64)
+    r, g, b = _RGB_TO_GRAY
+    y = (r * rgb[..., 0] + g * rgb[..., 1] + b * rgb[..., 2]) >> 15
+    return y.astype(np.float32)
+
+
+def _imread_gray(path: str) -> np.ndarray:
+    """One frame as an (H, W) float32 gray image, as cv2 reads it."""
+    if _is_png(path):
+        header = _png_header(path)
+        if header is None:
+            raise ValueError(f"{path}: not a readable PNG")
+        depth, colour, interlace = header
+        if depth == 8 and colour in (0, 4) and not interlace:
+            from . import native_io
+
+            img = native_io.decode_png(path)
+            if img is None:
+                raise ValueError(f"{path}: not a readable PNG")
+            return img
+        return _png_gray_like_cv2(path)
+    with _pil(path).open(path) as im:
+        if im.format == "JPEG":
+            im.draft("L", im.size)  # libjpeg's own luma plane, as cv2 reads
         return np.asarray(im.convert("L"), dtype=np.float32)
 
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 import chip_smoke
 import kernel_ab
+from monocular_visual_odometry_va4mr_torch.ops import image as timops
 from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as tv1
 from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as tk2
 
@@ -303,19 +304,22 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         tk2.klt_lk(img, img.cpu(), feat, valid, **kw)  # mixed devices
 
 
-def test_tracker_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("H,W,mid_iters", [(192, 320, 0), (600, 800, 4)])
+def test_tracker_on_cuda_matches_cpu(cuda, H, W, mid_iters):
+    """The multilevel chain on the card against the CPU: the main path's
+    ``mid_iters=0`` and the Malaga preset's 600x800 with ``mid_iters=4``
+    (a 150x200 mid plane)."""
     gen = torch.Generator().manual_seed(3)
-    img0 = smooth_image(gen, 192, 320)
+    img0 = smooth_image(gen, H, W)
     img1 = torch.roll(img0, shifts=(3, 9), dims=(0, 1)).contiguous()
-    pts = torch.stack([torch.rand(256, generator=gen) * 280 + 20,
-                       torch.rand(256, generator=gen) * 150 + 20], 1)
+    pts = torch.stack([torch.rand(256, generator=gen) * (W - 40) + 20,
+                       torch.rand(256, generator=gen) * (H - 42) + 20], 1)
     valid = torch.ones(256, dtype=torch.bool)
 
-    def pyr(img):
-        mid = img.reshape(48, 4, 80, 4).mean((1, 3))
-        return (img, mid, mid.reshape(12, 4, 20, 4).mean((1, 3)))
+    def pyr(img):  # 4x4 and 16x16 box means, cropped to whole boxes
+        return timops.build_flat_pyramid(img, 16, 4)
 
-    kw = dict(num_iters=6, mid_iters=0, win=15)
+    kw = dict(num_iters=6, mid_iters=mid_iters, win=15)
     pc, okc, _ = tk2.track_multilevel(pyr(img0), pyr(img1), pts, valid, **kw)
     pg, okg, _ = tk2.track_multilevel(
         tuple(p.to(cuda) for p in pyr(img0)),

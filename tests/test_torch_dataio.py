@@ -24,6 +24,11 @@ from monocular_visual_odometry_va4mr_torch.dataio import native_io as tio
 from monocular_visual_odometry_va4mr_torch.dataio import synthetic as tsyn
 
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7 passes: (x0, y0, dx, dy).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# A palette of 256 distinct colours, so gray reduction is exercised.
+PALETTE = np.random.default_rng(99).integers(0, 256, (256, 3), dtype=np.uint8)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -69,8 +74,17 @@ def png_bytes(img: np.ndarray, color_type: int, *, bit_depth: int = 8,
     body = (_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, bit_depth,
                                         color_type, 0, 0, interlace)))
     if color_type == 3:
-        body += _chunk(b"PLTE", bytes(range(256)) * 3)
-    body += _chunk(b"IDAT", zlib.compress(filter_rows(raw, bpp, filters)))
+        body += _chunk(b"PLTE", PALETTE.tobytes())
+    if interlace:  # Adam7: seven reduced images, each filtered on its own
+        raw = raw.reshape(H, W, -1)
+        data = b"".join(
+            filter_rows(np.ascontiguousarray(sub.reshape(sub.shape[0], -1)),
+                        bpp, filters)
+            for sub in (raw[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7)
+            if sub.size)
+    else:
+        data = filter_rows(raw, bpp, filters)
+    body += _chunk(b"IDAT", zlib.compress(data))
     return b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b"")
 
 
@@ -250,10 +264,70 @@ def parking_root(tmp_path, n=4):
     return str(root)
 
 
+def colour(rng, H=48, W=64, C=3):
+    """A colour image whose chroma varies slowly, as in a photo (8x8 blocks
+    plus noise), so subsampled JPEG chroma and the luma plane part
+    visibly."""
+    img = rng.integers(0, 256, (H // 8 + 2, W // 8 + 2, C)).astype(np.float64)
+    img = np.kron(img, np.ones((8, 8, 1)))[:H, :W]
+    img += rng.normal(0, 24, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def malaga_jpeg_root(tmp_path, n=8):
+    """Colour JPEGs, as the real Malaga extract ships them."""
+    from PIL import Image
+
+    root = tmp_path / "malaga"
+    d = root / "malaga-urban-dataset-extract-07_rectified_800x600_Images"
+    os.makedirs(d)
+    for i in range(n):
+        side = "left" if i % 2 == 0 else "right"
+        Image.fromarray(colour(np.random.default_rng(i), 120, 160)).save(
+            d / f"img_{i:03d}_{side}.jpg", quality=95)
+    return str(root)
+
+
+# Frame kinds of the colour PNG layouts: (colour type, bit depth,
+# channels, interlace).  Each colour layout stores one frame of each kind.
+PNG_KINDS = {
+    "native": [(2, 8, 3, 0), (6, 8, 4, 0), (4, 8, 2, 0), (0, 8, 1, 0)],
+    "pil": [(3, 8, 1, 0), (0, 8, 1, 1), (2, 8, 3, 1), (0, 16, 1, 0)],
+}
+
+
+def parking_png_root(tmp_path, kinds):
+    root = tmp_path / "parking"
+    for i, (ct, depth, ch, interlace) in enumerate(PNG_KINDS[kinds]):
+        rng = np.random.default_rng(i)
+        if depth == 16:
+            img = rng.integers(0, 65536, (48, 64), dtype=np.uint16)
+        elif ct == 3:
+            img = rng.integers(0, 256, (48, 64), dtype=np.uint8)
+        else:
+            img = colour(rng, C=ch)
+            img = img[..., 0] if ch == 1 else img
+        write_png(root / "images" / f"img_{i:05d}.png", img, ct,
+                  bit_depth=depth, interlace=interlace)
+    n = len(PNG_KINDS[kinds])
+    np.savetxt(root / "poses.txt", np.tile(np.eye(3, 4).reshape(-1), (n, 1)))
+    return str(root)
+
+
 LAYOUTS = {
     "kitti": (kitti_root, {}), "kitti_cap": (kitti_root, dict(last_frame=4)),
     "malaga": (malaga_root, {}), "parking": (parking_root,
                                              dict(last_frame=4)),
+    # Colour JPEG (the real Malaga extract): luma straight from libjpeg.
+    "malaga_jpeg": (malaga_jpeg_root, {}),
+    # Colour, gray + alpha: load_frame rounds as cv2, frames() stays on the
+    # native decoder's unrounded BT.601 (both as the reference).
+    "parking_colour": (lambda p: parking_png_root(p, "native"),
+                       dict(last_frame=4)),
+    # Palette, interlaced, 16-bit: load_frame reads them as cv2 does; the
+    # native reader of either package refuses them.
+    "parking_palette_interlaced": (lambda p: parking_png_root(p, "pil"),
+                                   dict(last_frame=4)),
 }
 
 
@@ -278,24 +352,39 @@ def test_loaders_equal_the_jax_loaders(tmp_path, layout):
         np.testing.assert_array_equal(ours.gt_poses, ref.gt_poses)
         np.testing.assert_array_equal(ours.gt_xz, ref.gt_xz)
         np.testing.assert_array_equal(ours.gt_positions, ref.gt_positions)
-    ref_frames = list(ref.frames())
+    streams = []
     for prefetch in (True, False):
+        try:
+            ref_frames = list(ref.frames(prefetch=prefetch))
+        except OSError:  # the reference's native reader refuses the file
+            with pytest.raises(OSError):
+                list(ours.frames(prefetch=prefetch))
+            continue
+        streams.append(prefetch)
         got = list(ours.frames(prefetch=prefetch))
         assert [i for i, _ in got] == [i for i, _ in ref_frames]
         for (_, a), (_, b) in zip(got, ref_frames):
+            assert a.dtype == np.float32
             np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(ours.load_frame(1), ref.load_frame(1))
-    assert [i for i, _ in ours.frames(start=2)] == list(
+    # cv2 and the port agree bit for bit on every frame kind: the largest
+    # difference is 0 gray levels on 0% of the pixels.
+    for i in range(ours.num_frames):
+        np.testing.assert_array_equal(ours.load_frame(i), ref.load_frame(i))
+    assert [i for i, _ in ours.frames(start=2, prefetch=streams[0])] == list(
         range(2, ours.num_frames))
 
 
 def test_an_unsupported_png_frame_raises(tmp_path):
+    """A frame no decoder reads raises (the reference's cv2 returns None
+    and its loader raises too); palette and interlaced PNGs now load."""
     root = parking_root(tmp_path)
-    write_png(os.path.join(root, "images", "img_00001.png"),
-              gray(np.random.default_rng(0)), 3)
+    data = png_bytes(gray(np.random.default_rng(0)), 0)
     spec = tds.load_parking(root, last_frame=4)
-    with pytest.raises(ValueError, match="does not support"):
-        spec.load_frame(1)
+    for bad in (data[:40], b"GIF89a" + data[6:]):  # truncated, not a PNG
+        with open(spec.frame_paths[1], "wb") as f:
+            f.write(bad)
+        with pytest.raises(ValueError, match="not a readable PNG"):
+            spec.load_frame(1)
 
 
 def test_non_png_frames_go_through_pil(tmp_path):

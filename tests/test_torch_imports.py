@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``monocular_visual_odometry_va4mr_torch``
-and none of ``chip_smoke.py``, ``kernel_ab.py`` and ``stress_diag.py``
+(its measuring tools under ``tools/`` included) and none of ``chip_smoke.py``, ``kernel_ab.py`` and ``stress_diag.py``
 imports ``jax``, the JAX package or ``cv2`` (the card's machine has none).
 The check reads the source text with ``ast``; it imports nothing."""
 import ast
@@ -37,6 +37,11 @@ def test_sources_are_found():
             "datasets.py", "native_io.py", "dashboard.py", "seq_dp.py",
             "multi_seq.py", "ba_sharded.py", "traj_ba.py", "multihost.py",
             "chip_smoke.py", "kernel_ab.py", "stress_diag.py"} <= names
+    # The measuring tools, which stand in for the JAX side's bench.py and
+    # tools/ and run on the card's machine, where there is no jax or cv2.
+    tools = {p.name for p in SOURCES if p.parent == PORT / "tools"}
+    assert {"harness.py", "bench.py", "bench_datasets.py", "profile_step.py",
+            "diag_tracker.py", "stress_klt_motion.py"} <= tools
 
 
 def test_the_port_has_every_module_of_the_jax_package():

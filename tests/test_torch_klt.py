@@ -168,9 +168,11 @@ def test_explicit_prior_and_swap_planes(rng, swap):
     assert torch_out[1].numpy().sum() > 60
 
 
-def test_track_multilevel_on_flat_pyramids(rng):
+@pytest.mark.parametrize("mid_iters", [0, 4])
+def test_track_multilevel_on_flat_pyramids(rng, mid_iters):
     """The /16 prior -> /4 LK -> full-res LK chain on build_flat_pyramid
-    planes; mid_iters=0 runs the mid pass at num_iters."""
+    planes; mid_iters=0 runs the mid pass at num_iters, 4 is the Malaga
+    preset's cap on it."""
     img0 = texture(rng, 192, 320)
     img1 = shifted(img0, 9.5, 3.25)
     jp0 = jimops.build_flat_pyramid(jnp.asarray(img0), 16, 4)
@@ -181,8 +183,8 @@ def test_track_multilevel_on_flat_pyramids(rng):
     pts = np.stack([rng.uniform(20, 300, 128), rng.uniform(20, 170, 128)],
                    1).astype(np.float32)
     valid = np.ones(128, bool)
-    kw = dict(num_iters=6, mid_iters=0, eps=0.01, min_eig_threshold=1e-4,
-              max_residual=20.0, win=15)
+    kw = dict(num_iters=6, mid_iters=mid_iters, eps=0.01,
+              min_eig_threshold=1e-4, max_residual=20.0, win=15)
     jax_out = jk2.track_multilevel(
         jp0, jp1, jnp.asarray(pts), jnp.asarray(valid),
         track_fn=jk2.track_features_pallas2, interpret=True, **kw)
