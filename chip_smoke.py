@@ -87,15 +87,17 @@ B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
    of the drifted ATE (the SE(3) one is printed).  The same stream on
    float32 frames is run for its ATE.
 C. The disk stream: phase B's 640 uint8 frames written as 8-bit gray PNGs
-   (rows filtered None, Sub, Up, Average, Paeth in turn, by a zlib + struct
-   writer here) with ``poses/05.txt`` in the KITTI layout under ``build/``;
-   the native decoder built from ``csrc/mvo_io.cpp``.  Gates: every frame
-   the ``PrefetchingReader`` decodes equals its source; decode frames/s at
-   least phase B's streamed frames/s; ``run_streaming`` over
-   ``load_kitti(root).frames()`` (cast to uint8) with phase B's VO, stride
-   and generators reproduces phase B's trajectory within ``STREAM_POS_TOL``
-   of the path, 3 ``klt_lk`` launches per step run plus 3 per bootstrap
-   hop; the CLI (``run.py --dataset kitti --data-root --tuned``: the
+   (rows filtered None, Sub, Up, Average, Paeth in turn, by
+   ``dataio.native_io.write_kitti``) with ``poses/05.txt`` in the KITTI
+   layout under ``build/``; the native decoder built from
+   ``csrc/mvo_io.cpp``.  Gates: every frame the ``PrefetchingReader``
+   decodes equals its source; decode frames/s at least phase B's streamed
+   frames/s; ``tools.bench_stream_2761.stream_sequence`` (the 2761-frame
+   tool's stream: ``run_streaming`` over ``load_kitti(root).frames()`` cast
+   to uint8) with phase B's VO, stride and generators and a block
+   checkpoint every 2 blocks under ``build/`` writes its checkpoint and
+   reproduces phase B's poses bit for bit, with 3 ``klt_lk`` launches per
+   step run plus 3 per bootstrap hop; the CLI (``run.py --dataset kitti --data-root --tuned``: the
    preset's SIFT bootstrap at the benched operating point of
    ``tune_for_tpu``, as the main path and phase B run) in a subprocess
    exits 0 with LOST <= 2% and a finite trajectory, and its positions equal
@@ -139,18 +141,15 @@ nonzero and prints no result.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import json
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -204,6 +203,7 @@ DRIFT_GAIN = 0.85  # the Sim(3) ATE must be below this share of the drifted
 FLIP_RAD = 0.1  # an orientation this far from the CPU's has flipped
 # Phase C: the disk stream.
 LOOP_CLI_LOST_FRAC = 0.02
+DISK_CK_EVERY = 2  # phase C's block checkpoints: every 2 blocks of 64
 DECODE_TARGET_FPS = 300  # tools/bench_native_decode.py:129's target, printed
 # Phase D: the realism stress (tests/test_tpu_e2e.py:104-148): name, scene
 # options, cache tag, augment_frames options, most LOST, ATE limit (m).
@@ -1083,53 +1083,12 @@ def phase_loop(ctx):
     return res
 
 
-def _png_chunk(kind, body):
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def png_gray(img):
-    """8-bit gray PNG bytes of (H, W) uint8 ``img``.  Row y takes filter
-    y % 5 (None, Sub, Up, Average, Paeth), so a decode runs every
-    reconstruction path."""
-    H, W = img.shape
-    x = img.astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, 1:] = x[:, :-1]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, 1:] = x[:-1, :-1]
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    f = np.arange(H) % 5
-    pred = np.stack([np.zeros_like(x), a, b, (a + b) // 2, paeth])
-    rows = np.empty((H, W + 1), np.uint8)
-    rows[:, 0] = f
-    rows[:, 1:] = (x - pred[f, np.arange(H)]) & 0xFF
-    return (b"\x89PNG\r\n\x1a\n"
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0,
-                                              0))
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + _png_chunk(b"IEND", b""))
-
-
 def write_kitti(root, u8, poses_WC):
-    """``u8`` frames as ``05/image_0/{i:06d}.png`` and their poses as
-    ``poses/05.txt`` (3x4 camera-to-world rows): the KITTI layout."""
-    img_dir = os.path.join(root, "05", "image_0")
-    os.makedirs(img_dir)
-    os.makedirs(os.path.join(root, "poses"))
-    np.savetxt(os.path.join(root, "poses", "05.txt"),
-               poses_WC[:, :3, :].reshape(len(poses_WC), 12))
+    """``dataio.native_io.write_kitti``: ``u8`` frames and their poses in
+    the KITTI layout (``stress_diag.py --write-kitti`` calls it here)."""
+    from monocular_visual_odometry_va4mr_torch.dataio import native_io
 
-    def one(i):
-        with open(os.path.join(img_dir, f"{i:06d}.png"), "wb") as f:
-            f.write(png_gray(u8[i]))
-
-    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        list(pool.map(one, range(len(u8))))
+    native_io.write_kitti(root, u8, poses_WC)
 
 
 def phase_disk(ctx):
@@ -1145,9 +1104,11 @@ def phase_disk(ctx):
                                                               native_io)
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.pipeline import (
-        runner, scan_driver)
+        checkpoint, runner)
     from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
         VisualOdometry)
+    from monocular_visual_odometry_va4mr_torch.tools import (
+        bench_stream_2761)
 
     loop = ctx["loop"]
     scene, u8, vo = loop["scene"], loop["u8"], loop["vo"]
@@ -1182,41 +1143,45 @@ def phase_disk(ctx):
         if dec["decode_fps"] < loop["fps"]:
             raise RuntimeError(f"the decoder is slower than the stream: {dec}")
 
-        # (c) the block driver over the files, as phase B streamed memory.
-        b = LOOP_STRIDE
-        frames = ((i, img.astype(np.uint8)) for i, img in spec.frames())
-        head = [next(frames)[1] for _ in range(b + 1)]
-        boots, steps = CountingBootstrap(vo), CountingStep(vo)
-        torch.cuda.synchronize()
-        k2.klt_lk.launches = 0
+        # (c) the block driver over the files, as phase B streamed memory,
+        # through the stream tool's function, with block checkpoints.
+        ck_dir = os.path.join(root, "checkpoints")
         t1 = time.perf_counter()
-        s0 = vo.bootstrap(head[0], head[b], intermediate=head[1:b],
-                          generator=runner.frame_generator(0, 0, vo.device))
-        _, outs, fids, info = scan_driver.run_streaming(
-            vo, s0, frames, 0, block=LOOP_BLOCK, emit_landmarks=True,
-            recover=True, bootstrap_stride=b)
+        run = bench_stream_2761.stream_sequence(
+            vo, spec, bootstrap=LOOP_STRIDE, block=LOOP_BLOCK,
+            checkpoint_dir=ck_dir, checkpoint_every_blocks=DISK_CK_EVERY)
         torch.cuda.synchronize()
         stream_s = time.perf_counter() - t1
-        launches, expected = k2.klt_lk.launches, 3 * (steps.calls
-                                                      + boots.hops)
+        outs, fids, info = run["outs"], run["ids"], run["info"]
         stream = trajectory_health(scene, fids, positions_of(outs.T_CW),
                                    list(outs.status))
         same_ids = fids == loop["fids"]
+        bit_equal = same_ids and bool(
+            np.array_equal(outs.T_CW, loop["outs"].T_CW))
         diff = (float(np.abs(positions_of(outs.T_CW)
                              - positions_of(loop["outs"].T_CW)).max())
                 if same_ids else None)
-        stream.update(stream_s=stream_s, fps=len(fids) / stream_s,
+        ck_frame = checkpoint.saved_frame(ck_dir)
+        stream.update(stream_s=stream_s, fps=run["fps"],
+                      bootstrap_status=run["bootstrap_status"],
                       memory_fps=loop["fps"], recoveries=info.recoveries,
-                      launches=launches, launches_expected=expected,
+                      blocks=info.blocks, launches=run["klt_lk_launches"],
+                      launches_expected=run["klt_lk_launches_expected"],
+                      checkpoint_every_blocks=DISK_CK_EVERY,
+                      checkpoints_written=info.blocks // DISK_CK_EVERY,
+                      checkpoint_frame=ck_frame,
+                      checkpoint_files=sorted(os.listdir(ck_dir))
+                      if os.path.isdir(ck_dir) else [],
                       pos_diff_vs_memory=diff,
-                      tol=STREAM_POS_TOL * stream["path"],
+                      T_CW_bit_equal_to_memory=bit_equal,
                       statuses_equal=same_ids and list(outs.status)
                       == list(loop["outs"].status))
         print("disk_stream " + json.dumps(stream), flush=True)
-        if not same_ids or launches != expected:
-            raise RuntimeError(f"disk stream ran other frames or launches: "
-                               f"{stream}")
-        if not diff <= stream["tol"]:
+        if not same_ids:
+            raise RuntimeError(f"disk stream ran other frames: {stream}")
+        if ck_frame is None or info.blocks < DISK_CK_EVERY:
+            raise RuntimeError(f"no block checkpoint was written: {stream}")
+        if not bit_equal:
             raise RuntimeError(f"disk stream differs from phase B: {stream}")
 
         # (d) the CLI on the files, then the same run in this process.

@@ -90,6 +90,13 @@ def save(directory: str, state: FrameState, frame_index: int, *,
     os.replace(tmp, path)
 
 
+def saved_frame(directory: str) -> Optional[int]:
+    """The frame index of the checkpoint in ``directory``, or None when
+    there is none."""
+    saved = _load(directory)
+    return None if saved is None else int(saved["frame_index"])
+
+
 def restore_aux(directory: str, vo=None):
     """Restore (records, ring, bank) from a checkpoint; each is None if it
     was not saved.  ``vo`` is needed to rebuild the bank."""

@@ -325,22 +325,26 @@ def run_sequence(
                         print(f"frame {idx}: re-bootstrapped after loss "
                               f"(scale {scale:.3f}, {src})")
 
+        refined_ring = False
         if ring is not None:
             ring.push(state)
             if idx % ba_every == 0:
                 from .ba_refine import refine
 
                 state = refine(state, ring, vo.cam, mesh=ba_mesh)
-                # refine() rewrote ring.poses with the refined window.  As in
-                # the reference (runner.py:346-352), the write-back runs
-                # before this frame's record is appended, so each refined
-                # pose lands one record early (ROADMAP.md Queue 3).
-                for k in range(len(ring)):
-                    records[-len(ring) + k].T_WC = _T_WC(ring.poses[k])
+                refined_ring = True
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t0) * 1000
         records.append(_record(idx, state, wall))
+        if refined_ring:
+            # refine() rewrote ring.poses with the refined window, whose last
+            # pose is this frame's: ring pose k goes to the record of ring
+            # frame k.  (The reference writes back before appending this
+            # frame's record, so each of its refined poses lands one record
+            # early, runner.py:346-352.)
+            for k in range(len(ring)):
+                records[-len(ring) + k].T_WC = _T_WC(ring.poses[k])
         if int(state.status) == STATUS_TRACKING:
             last_good_state = state
         if bank is not None:

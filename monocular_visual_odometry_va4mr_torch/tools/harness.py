@@ -82,6 +82,22 @@ def device_label(device) -> str:
     return device_line() if torch.device(device).type == "cuda" else "cpu"
 
 
+def device_fields(device) -> dict:
+    """``device`` (the card's name) and ``power_limit`` from the
+    ``nvidia-smi`` line; ``cpu`` and ``None`` off the card."""
+    if torch.device(device).type != "cuda":
+        return dict(device="cpu", power_limit=None)
+    name, _, power = device_line().rpartition(",")
+    return dict(device=name.strip(), power_limit=power.strip())
+
+
+def peak_rss_mb() -> float:
+    """The peak resident set of this process, MiB (Linux ``ru_maxrss``)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -93,15 +109,112 @@ def _render(args):
     return scene.render(i)
 
 
+def spawn_map(fn, items, workers=None, initializer=None, initargs=()):
+    """``[fn(x) for x in items]`` over a spawn pool of ``workers`` processes
+    (one per core by default; in this process, after ``initializer``, when
+    that is 1).  ``fn`` and ``initializer`` are module-level functions."""
+    items = list(items)
+    workers = min(len(items), workers or os.cpu_count() or 1)
+    if workers <= 1:
+        if initializer is not None:
+            initializer(*initargs)
+        return [fn(x) for x in items]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers, initializer, initargs) as pool:
+        return pool.map(fn, items)
+
+
 def render_frames(scene, n):
     """Frames 0..n-1 of ``scene``, rendered by a spawn pool of one process
     per core (in this process on one core)."""
-    workers = min(n, os.cpu_count() or 1)
-    if workers <= 1:
-        return [scene.render(i) for i in range(n)]
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(workers) as pool:
-        return pool.map(_render, [(scene, i) for i in range(n)])
+    return spawn_map(_render, [(scene, i) for i in range(n)])
+
+
+class CallCounts:
+    """While installed (``with``), counts ``vo``'s steps and its bootstraps'
+    KLT hops (``len(intermediate) + 1`` a KLT bootstrap, 0 a SIFT one),
+    so a caller can hold ``klt_lk``'s launches at 3 per step and hop."""
+
+    def __init__(self, vo):
+        self.vo, self.steps, self.hops, self.bootstraps = vo, 0, 0, 0
+
+    def __enter__(self):
+        vo = self.vo
+        self._saved = {k: vo.__dict__[k] for k in ("step", "bootstrap")
+                       if k in vo.__dict__}
+        step, boot = vo.step, vo.bootstrap
+        sift = vo.config.bootstrap_method == "sift"
+
+        def counted_step(state, image, generator=None):
+            self.steps += 1
+            return step(state, image, generator=generator)
+
+        def counted_bootstrap(img0, img1, intermediate=(), generator=None):
+            self.bootstraps += 1
+            self.hops += 0 if sift else len(intermediate) + 1
+            return boot(img0, img1, intermediate=intermediate,
+                        generator=generator)
+
+        vo.step, vo.bootstrap = counted_step, counted_bootstrap
+        return self
+
+    def __exit__(self, *exc):
+        for k in ("step", "bootstrap"):
+            if k in self._saved:
+                setattr(self.vo, k, self._saved[k])
+            else:
+                delattr(self.vo, k)
+
+    def expected_lk(self) -> int:
+        """``klt_lk``'s launches these calls make: 3 per step and hop on
+        the kernel path, none off it."""
+        return 3 * (self.steps + self.hops) if launches_lk(self.vo) else 0
+
+
+# --- process groups ----------------------------------------------------------
+
+def _world_entry(rank, fn, world, store, out_dir, args):
+    import torch.distributed as dist
+
+    from ..parallel import multihost
+
+    torch.set_num_threads(1)
+    multihost.initialize(f"file://{store}", world, rank)
+    try:
+        out = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_world(fn, world, *args):
+    """``fn(rank, world, *args)`` in each of ``world`` spawned processes
+    joined in one process group (``parallel.multihost.initialize`` through
+    a ``file://`` store under ``build/``: NCCL, one card a rank, where CUDA
+    is present, gloo on the CPU).  ``fn`` is a module-level function; its
+    results, in rank order."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="world-", dir=BUILD)
+    try:
+        mp.spawn(_world_entry, args=(fn, world, os.path.join(tmp, "pg"), tmp,
+                                     args), nprocs=world)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parse_worlds(text, device):
+    """World sizes from ``text`` (comma-separated), or by default 1 on the
+    card (one card, one rank) and 1, 2, 4, 8 on the CPU."""
+    if text:
+        return [int(s) for s in text.split(",") if s.strip()]
+    return [1] if torch.device(device).type == "cuda" else [1, 2, 4, 8]
 
 
 # --- health ------------------------------------------------------------------

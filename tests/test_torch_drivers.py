@@ -163,16 +163,103 @@ def assert_runs_agree(jres, tres, last_frame=None):
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-3 * path)
 
 
+def ba_written_frames(frames_run, ba_every, ba_window):
+    """The frames whose records a BA window writes back: at every step frame
+    ``f`` with ``f % ba_every == 0``, the last ``ba_window`` step frames up
+    to ``f`` when there are at least 3 (``ba_refine.refine``'s minimum)."""
+    steps = frames_run[1:]  # the bootstrap frame is not in the ring
+    written = set()
+    for j, f in enumerate(steps):
+        ring = steps[max(0, j + 1 - ba_window):j + 1]
+        if f % ba_every == 0 and len(ring) >= 3:
+            written.update(ring)
+    return written
+
+
 def test_run_sequence_with_ba_matches_reference(scene, frames,
                                                 reference_runs):
-    _, jres, _ = reference_runs
+    """The reference writes each refined ring pose one record early
+    (ROADMAP.md Queue 3): its record of frame f - 1 holds the refined pose
+    of frame f.  The port writes it into the record of frame f.  So a port
+    record that a window wrote back equals the reference's record of the
+    frame before; every other record equals the reference's of its own
+    frame, but for the bootstrap record: the first window overwrote the
+    reference's (with the pose of the frame after it), so the port's is held
+    against the reference's bootstrap state."""
+    jvo, jres, _ = reference_runs
     draws = JaxDraws()
     tres = runner.run_sequence(make_tvo(scene, draws), enumerate(frames),
                                bootstrap_stride=STRIDE, ba_every=4,
                                ba_window=6)
     assert draws.streams == len(frames) - STRIDE  # bootstrap + 17 steps
     assert tres.num_lost() == 0 and len(tres.records) == len(frames) - STRIDE
-    assert_runs_agree(jres, tres)
+    ids = [r.frame for r in tres.records]
+    written = ba_written_frames(ids, 4, 6)
+    assert len(written) >= 10
+    jrec = jres.records
+    assert [r.frame for r in jrec] == ids
+    assert [r.status for r in jrec] == [r.status for r in tres.records]
+    assert [r.n_tracked for r in jrec] == [r.n_tracked for r in tres.records]
+    pj = {r.frame: r.T_WC[:3, 3] for r in jrec}
+    assert ids[0] not in written and ids[0] + 1 in written
+    T0 = np.asarray(jvo.bootstrap(
+        frames[0], frames[STRIDE], jax.random.fold_in(
+            jax.random.PRNGKey(SEED), 0),
+        intermediate=frames[1:STRIDE]).T_CW)
+    want = np.stack([-T0[:3, :3].T @ T0[:3, 3]]
+                    + [pj[f - 1] if f in written else pj[f]
+                       for f in ids[1:]])
+    path = np.sum(np.linalg.norm(np.diff(jres.positions, axis=0), axis=1))
+    np.testing.assert_allclose(tres.positions, want, rtol=0,
+                               atol=1e-3 * path)
+
+
+def test_run_sequence_writes_each_refined_pose_into_its_own_record(
+        scene, frames, monkeypatch):
+    """With ``ba_every``, the record of every frame a BA window covered
+    holds that frame's pose from the last window that refined it; the other
+    records hold the step's pose."""
+    refines = []
+    plain = ba_refine.refine
+
+    def spy(state, ring, cam, **kw):
+        out = plain(state, ring, cam, **kw)
+        refines.append([T.copy() for T in ring.poses])
+        return out
+
+    monkeypatch.setattr(ba_refine, "refine", spy)
+    steps = []
+    vo = make_tvo(scene)
+    step = vo.step
+
+    def counting_step(state, image, **kw):
+        out = step(state, image, **kw)
+        steps.append(out.T_CW.numpy().copy())
+        return out
+
+    vo.step = counting_step
+    tres = runner.run_sequence(vo, enumerate(frames),
+                               bootstrap_stride=STRIDE, ba_every=4,
+                               ba_window=6)
+    ids = [r.frame for r in tres.records]
+    step_ids = ids[1:]
+    want = {f: T for f, T in zip(step_ids, steps)}
+    # (A ring of fewer than 3 frames comes back as it went in.)
+    triggers = [f for f in step_ids if f % 4 == 0]
+    assert len(refines) == len(triggers) >= 3
+    for f, ring in zip(triggers, refines):
+        j = step_ids.index(f)
+        for g, T in zip(step_ids[max(0, j + 1 - 6):j + 1], ring):
+            want[g] = T  # a later window overwrites an earlier one
+    assert set(want) == set(step_ids)
+    for r in tres.records[1:]:
+        T = want[r.frame]
+        np.testing.assert_allclose(r.T_WC[:3, 3], -T[:3, :3].T @ T[:3, 3],
+                                   rtol=0, atol=1e-6)
+    # The write-back moved some records off the step's pose.
+    moved = [f for f, T in zip(step_ids, steps)
+             if not np.allclose(want[f], T, atol=1e-7)]
+    assert moved
 
 
 def test_blackout_recovery_matches_reference(scene, blackout_frames,

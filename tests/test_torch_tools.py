@@ -27,8 +27,11 @@ from monocular_visual_odometry_va4mr_torch.core import config as tconfig
 from monocular_visual_odometry_va4mr_torch.dataio import synthetic as tsyn
 from monocular_visual_odometry_va4mr_torch.evalx import ate as tate
 from monocular_visual_odometry_va4mr_torch.tools import (
-    bench, bench_datasets, diag_tracker, harness, profile_step,
-    stress_klt_motion)
+    bench, bench_ba_scaling, bench_datasets, bench_native_decode,
+    bench_stream, bench_stream_2761, diag_ba, diag_drift, diag_e2e,
+    diag_survival, diag_tracker, exp_ate, harness, make_kitti_seq,
+    profile_ba, profile_branch, profile_step, profile_trigger,
+    stress_klt_motion, traj_ba_convergence)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMALL = (120, 160)
@@ -179,9 +182,12 @@ def test_stress_klt_motion_lines(small, monkeypatch, capsys):
     assert rows[0]["xla"]["good"] > 0.6 * 64
 
 
-@pytest.mark.parametrize("tool", [bench, bench_datasets, profile_step,
-                                  diag_tracker, stress_klt_motion],
-                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+@pytest.mark.parametrize("tool", [
+    bench, bench_datasets, profile_step, diag_tracker, stress_klt_motion,
+    bench_stream, bench_stream_2761, make_kitti_seq, bench_native_decode,
+    profile_ba, profile_branch, profile_trigger, diag_ba, bench_ba_scaling,
+    traj_ba_convergence, diag_e2e, diag_drift, diag_survival, exp_ate],
+    ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_tools_default_to_cuda_and_refuse_without_it(tool):
     """No ``--device``: the card.  Without one the tool raises before it
     renders or runs anything; nothing falls back to the CPU."""
