@@ -15,7 +15,10 @@ exits nonzero:
 2. The packed LK kernel (``klt_lk``) against its plain PyTorch version on
    the card, at the main path's shapes: the full-res 376x1241 plane (N=1024
    features, win 15, 6 iterations), the /4 plane (94x310) and the backward
-   pass (planes swapped, 4 iterations).  Agreement; the kernel's
+   pass (planes swapped, 4 iterations), and an input built so that the
+   reference kernel's search slab wraps on every feature (``wrap_call``:
+   sub = 7, each search starting 7 px down; the port reads the true rows
+   there).  Agreement; the kernel's
    ``device_ms``, the device time of one call (calls queued behind a spin
    kernel, so the wrapper's host work falls outside the CUDA events), and
    its ``call_ms``, the median of 20 single calls between two events on an
@@ -40,8 +43,8 @@ exits nonzero:
    health: 0 LOST, a finite trajectory and ATE <= 2% of the path over the
    timed frames, and no LOST warm-up frame.  Then ``klt_lk`` against its
    plain version at the preset's three calls, as in phase 2: the 600x800
-   plane (6 iterations), the 150x200 mid plane (4) and the backward pass
-   (4).  The JAX record of the same run (``BENCH_datasets.json``) is
+   plane (6 iterations), the 150x200 mid plane (4), the backward pass (4)
+   and the forced wrap at 600x800.  The JAX record of the same run (``BENCH_datasets.json``) is
    printed beside it, read only.
 4. The block driver on the same path: ``scan_driver.run_streaming`` over
    frames 5..99 uploaded as uint8, blocks of 16 with a padded tail.
@@ -49,7 +52,8 @@ exits nonzero:
    positions within 1e-3 of the path of, a step loop over the same frames
    with the same per-frame generators; the health gate of phase 3.
 5. The v1 LK kernel (``klt_v1``) against its plain version, the same three
-   shapes and tolerances.
+   shapes and tolerances, and an input whose every template meets the
+   reference's template row wrap (``wrap_call``: slab row yi % 8 == 0).
 6. The CLI in a subprocess: ``python -m monocular_visual_odometry_va4mr_torch
    .run --dataset synthetic`` over 40 frames with host-side BA every 8 and a
    checkpoint at frame 20, then again with ``--resume``; both exit 0 and the
@@ -462,12 +466,62 @@ def kernel_calls(name, inputs, prefix=""):
     return calls
 
 
+def wrap_call(name, inputs, prefix=""):
+    """A call of kernel ``name`` built so that the reference kernel's slab
+    wraps on every feature, in the form of ``kernel_calls``: the template is
+    the path's full-resolution plane, the search plane the same moved by
+    whole pixels, and every position is snapped to rows that wrap.
+
+    ``klt_lk``: the search plane is 7 rows down and every template row has
+    floor(y) = 6 (mod 8), so the search origin floor(y) - 7 has sub = 7;
+    every search starts at its true offset, 7 + phase px down (n = 7), and
+    rows 10.. of its first window lie past the reference's slab, which
+    reads them 32 rows up (the port reads the true rows).  ``klt_v1``: the
+    search plane is 1 row down and 2 px left and every template row has
+    floor(y) = 7 (mod 8), so the template's slab row yi is a multiple of 8
+    and the upward gradient of its row 0 reads slab row yi + 23, in the
+    reference and in the port."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+
+    pyr_a, _, pts, valid, _, (iters, _, _) = inputs
+    tmpl = pyr_a[0]
+    gates = dict(eps=0.01, min_eig_threshold=1e-4, max_residual=20.0)
+    y = pts[:, 1]
+    if name == "klt_lk":
+        srch = torch.roll(tmpl, 7, 0).contiguous()
+        p = torch.stack([pts[:, 0],
+                         y - torch.remainder(torch.floor(y) - 6, 8)], 1)
+        po, pp = k2._origin_and_phase(p, 15)
+        g0 = pp + torch.tensor([0.0, 7.0], device=pp.device)
+        feat = torch.cat([po, pp, po, g0], 1).contiguous()
+        if not bool((torch.remainder(po[:, 1] + k2.PAD - 8, 8) == 7).all()):
+            raise RuntimeError("wrap_call: a search origin misses sub = 7")
+        return (prefix + "full_res_forced_wrap", k2.klt_lk, k2.klt_lk_plain,
+                (tmpl, srch, feat, valid), iters, dict(win=15, **gates),
+                k2.FEAT_COLS * 4 + 1)
+    srch = torch.roll(tmpl, (1, -2), (0, 1)).contiguous()
+    p = torch.stack([pts[:, 0], y - torch.remainder(torch.floor(y) - 7, 8)],
+                    1)
+    q = p + torch.tensor([-2.0, 1.0], device=p.device)
+    meta = torch.stack([p[:, 1], p[:, 0], q[:, 1], q[:, 0],
+                        valid.to(torch.float32)], 1).contiguous()
+    if not bool((v1.slab_geometry(meta, *tmpl.shape)[2] % 8 == 0).all()):
+        raise RuntimeError("wrap_call: a template row misses the wrap")
+    return (prefix + "full_res_forced_wrap", v1.klt_v1, v1.klt_v1_plain,
+            (tmpl, srch, meta), iters, gates, v1.META_COLS * 4)
+
+
 def phase_kernels(name, inputs, prefix=""):
-    """Kernel ``name`` against its plain version at a path's three calls."""
+    """Kernel ``name`` against its plain version at a path's three calls,
+    and on the input whose slab rows wrap (``wrap_call``)."""
     return [kernel_case(case, kernel, plain, args, args[2].shape[0], [0, 1],
                         num_iters=iters, in_row_bytes=row_bytes, extra=extra)
             for case, kernel, plain, args, iters, extra, row_bytes
-            in kernel_calls(name, inputs, prefix)]
+            in kernel_calls(name, inputs, prefix)
+            + [wrap_call(name, inputs, prefix)]]
 
 
 def phase_main_path(scene, frames, vo):

@@ -15,12 +15,17 @@ example ``klt_v1=variants/klt_v1_one_box.cu``.  Every source is built (one
 ``nvcc`` per source, all started together) and each kernel is called
 through this checkout's wrapper, so only the kernel differs.  The inputs
 are ``chip_smoke.py``'s: frames 12 and 13 of ``bench.py``'s scene at the
-main path's three calls (full-res and /4 forward, full-res backward), N =
-1024.
+main path's three calls (full-res and /4 forward, full-res backward) and
+the input built so that the reference's slab wraps on every feature
+(``chip_smoke.wrap_call``), N = 1024.
 
 Per kernel and call it prints one JSON line: both kernels' outputs compared
 (``bit_equal``: the same bits in every output, NaNs included;
-``max_abs_diff`` over finite values), ``device_ms`` of base and of this
+``max_abs_diff`` over finite values; ``differ_share``: the share of
+features whose output bits differ, beside ``wrapped_share``, the share that
+the reference kernel's slab wrap reaches (``wrapped``), and
+``differ_elsewhere``, the count of differing features it does not reach),
+``device_ms`` of base and of this
 checkout's kernel (``chip_smoke.device_time_ms``) taken in turns base, new,
 new, base, ``ROUNDS`` times, with their medians, each one's ``call_ms``, the
 plain version's time, the bound (``chip_smoke.bound_ms``) and each kernel's
@@ -78,6 +83,32 @@ def build_both(bases):
     return entries
 
 
+def wrapped(name, call):
+    """Per feature of ``call``, whether it meets the reference kernel's slab
+    wrap: for ``klt_v1`` a template whose slab row is a multiple of 8 or
+    whose slab column is 0 (``klt_v1_plain``, which reads them as the
+    reference does); for ``klt_lk`` a search that, at an offset the plain
+    version passes through, reads a row past the reference's slab
+    (``stress_diag.slab_top``), where the port reads the true row."""
+    import torch
+
+    import stress_diag
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
+
+    _, _, plain, args, iters, extra, _ = call
+    if name == "klt_v1":
+        _, _, yi, xi = v1.slab_geometry(args[2], *args[0].shape)
+        return (yi % 8 == 0) | (xi == 0)
+    qy = args[2][:, 5]
+    end = stress_diag.slab_top(qy) + stress_diag.SLAB_ROWS
+    out = torch.zeros_like(qy, dtype=torch.bool)
+    for k in range(iters + 1):
+        n = torch.floor(plain(*args, num_iters=k, **extra)[:, 1]).clamp(
+            -8.0, 7.0)
+        out |= qy + n + extra["win"] >= end
+    return out
+
+
 def compare(name, call, entries):
     import torch
 
@@ -108,12 +139,16 @@ def compare(name, call, entries):
     b_ms, b_by, _, _ = cs.bound_ms(args[2].shape[0], iters_run, row_bytes,
                                    5 * 4)
     dev = {w: statistics.median(t) for w, t in times.items()}
+    differ = (out_b.view(torch.int32) != out_n.view(torch.int32)).any(1)
+    wraps = wrapped(name, call)
     res = dict(
         kernel=name, case=case, shape=list(args[0].shape),
         n=args[2].shape[0], num_iters=iters,
-        bit_equal=torch.equal(out_b.view(torch.int32),
-                              out_n.view(torch.int32)),
+        bit_equal=not bool(differ.any()),
         max_abs_diff=float((out_b - out_n)[fin].abs().max()),
+        differ_share=float(differ.float().mean()),
+        wrapped_share=float(wraps.float().mean()),
+        differ_elsewhere=int((differ & ~wraps).sum()),
         base_device_ms=dev["base"], device_ms=dev["new"],
         base_device_ms_runs=times["base"], device_ms_runs=times["new"],
         speedup=dev["base"] / dev["new"],
@@ -255,7 +290,7 @@ def main():
     print(f"frames rendered in {time.perf_counter() - t0:.1f} s", flush=True)
     inputs = cs.bench_inputs(frames, cs.main_path_vo(scene)[2])
     for name in bases:
-        calls = cs.kernel_calls(name, inputs)
+        calls = cs.kernel_calls(name, inputs) + [cs.wrap_call(name, inputs)]
         for call in calls:
             compare(name, call, entries)
         scaling(name, calls[0], entries)

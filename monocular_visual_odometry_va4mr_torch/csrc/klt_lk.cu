@@ -23,8 +23,36 @@
 // 4-per-tile lane packing, block-diagonal MXU reduce).  It reads the (H, W)
 // float planes directly and clamps every coordinate to the image, which
 // equals the reference's edge padding of 32 px for every read that the
-// wrapper's clipped inputs can reach.  Unlike the TPU kernel it reads the
-// true image where the TPU's 32-row slab wraps (see ROADMAP.md, Queue 3).
+// wrapper's clipped inputs can reach.
+//
+// Where the TPU kernel's circular rolls wrap, this kernel reads the true
+// image, by decision.  Those rolls, at the inputs its wrapper admits
+// (positions clipped to [-8, W+8], n in [-8, 7], win odd 5..15), by line of
+// ops/klt_pallas2.py:
+//   * :120, the registration's row roll: registered row p is slab row
+//     (p + sub) mod 32, sub = by - y0 in 0..7 with by the window's padded
+//     top row minus 8 and y0 = floor(by / 8) * 8.  The template reads
+//     registered rows 7 .. win+9 <= 24, so its rows never wrap; the search
+//     reads registered rows 8 + n .. 8 + n + win in 0..30, which wrap when
+//     8 + n + win + sub >= 32 (at win 15: sub + n > 8; never at win <= 9),
+//     and then read the image row 32 above the true one;
+//   * :191, :193, the search's row pre-shift and shifts: their composition
+//     is the shift by n, within 0..30 of the 32 rows: no wrap of their own;
+//   * :122, :131, :194, :196, the lane rolls: registered lanes 0..31 are
+//     slab lanes r .. r + 31 <= 62 of 128, each slot's 32 lanes are moved
+//     whole, the template reads in-slot lanes 7 .. win + 9 and the search
+//     lanes 8 + n .. 8 + n + win, all within 0..30: none wraps;
+//   * :162-164, :171-172, the blend's and the gradients' rolls by one row
+//     or lane: every read that the window mask keeps stays inside its slot
+//     and below row 32 (template) or row 24 of the search's 24 rows.
+// Besides, the TPU kernel sums 4 features' window terms in one matmul by a
+// block-diagonal 0/1 matrix (gsum, :151-155), so once one feature's sum is
+// not finite (a search that ran away and overflowed), inf * 0 makes the
+// sums of all 4 NaN; here each feature's sums are its own.  A plain
+// version with both of the TPU kernel's readings, held against it feature
+// for feature, is stress_diag.py's reference_read_lk.  With those readings
+// the port fails chip_smoke.py's hard-realism gate on the card (seed 0),
+// so it keeps the true read (PERF.md; ROADMAP.md, Queue 3).
 //
 // What bounds it on an H100: latency, not bytes or operations.  One call
 // reads ~2.4 MB and does ~38 MFLOP (a 0.73 us bound), but each feature is a

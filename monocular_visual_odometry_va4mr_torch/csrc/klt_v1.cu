@@ -25,10 +25,26 @@
 // feature into VMEM, 8-row aligned loads and the circular sublane / lane rolls
 // that re-register them).  It reads the (H, W) planes directly and clamps every
 // coordinate to the image, which equals the reference's edge padding for every
-// slab row and column.  One departure, by design: the reference's circular
-// roll makes row 0 of the template's upward gradient read slab row yi + 23
-// when yi % 8 == 0; this kernel reads the true row yi - 1 (ROADMAP.md,
-// Queue 3).
+// slab row and column.
+//
+// It reads the rows and columns the TPU kernel reads, wrapped ones included.
+// The TPU kernel's circular rolls, by line of ops/klt_pallas.py, for a window
+// at slab row yi (clipped to 0..31) and column xi (0..239):
+//   * :206, :207, the registration: the 24 rows loaded from yi8 = yi - yi % 8
+//     roll up by yi % 8 and the 256 lanes left by xi, so registered row p is
+//     slab row yi8 + (p + yi % 8) mod 24 and lane l slab lane (l + xi) mod 256;
+//   * :212, :213, :217, the blend's rolls by one row or lane, and :248,
+//     :250, Txp's and Typ's rolls up or left by one: every read that the
+//     window mask keeps lies in registered rows 0..16 and lanes 0..16,
+//     inside both rings;
+//   * :251, Tym's roll down by one: row 0 of the upward gradient reads
+//     registered row -1, which is slab row yi + 23 when yi % 8 == 0;
+//   * :249, Txm's roll right by one: column 0 of the leftward gradient reads
+//     registered lane -1, which is slab lane 255 when xi == 0 (a template
+//     more than 8 px left of the image; the wrapper does not clip).
+// So the template block's first row is image row oy + 23 when yi % 8 == 0,
+// and its first column image column x0 - 16 + 255 when xi == 0 (each then
+// clamped); the search reads no wrapped row or lane.
 //
 // Float -> int conversions go through floor_int: NaN gives 0 and values clamp
 // to +-1e8, which is what the reference's conversion gives for NaN and, after
@@ -96,6 +112,7 @@ constexpr int kSlotsPerWarp = kPixSlots / kWarps;  // 4
 constexpr int kRows = 48;
 constexpr int kLanes = 256;
 constexpr int kPad = 16;
+constexpr int kTmplRows = 24;  // rows the template's gradients roll within
 constexpr int kTmplSide = kWin + 3;  // window, gradient ring, corner
 constexpr int kGrid = kWin + 2;      // the interpolated template's grid
 constexpr int kGridPerThread = (kGrid * kGrid + kThreads - 1) / kThreads;
@@ -212,11 +229,13 @@ __global__ void __launch_bounds__(kThreads, 8)
   const int hi_y = kRows - kWin - 2;
   const int hi_x = kLanes - kWin - 2;
 
-  // Template origin (image coordinates) and phase.
+  // Template origin (slab and image coordinates) and phase.
   const float ty = (py - static_cast<float>(kR)) - y0f;
   const float tx = (px - static_cast<float>(kR)) - x0f;
-  const int oy = y0 - kPad + clampi(floor_int(ty), 0, hi_y);
-  const int ox = x0 - kPad + clampi(floor_int(tx), 0, hi_x);
+  const int yi = clampi(floor_int(ty), 0, hi_y);
+  const int xi = clampi(floor_int(tx), 0, hi_x);
+  const int oy = y0 - kPad + yi;
+  const int ox = x0 - kPad + xi;
   const float phy = ty - floorf(ty);
   const float phx = tx - floorf(tx);
 
@@ -228,18 +247,24 @@ __global__ void __launch_bounds__(kThreads, 8)
                   sy - floorf(sy), sx - floorf(sx)};
   };
 
-  // Stage the template block, rows oy-1 .. oy+16 and cols ox-1 .. ox+16, and
-  // the first search box, rows and cols -8 .. +23 around the g = 0 window.
+  // Stage the template block, rows oy-1 .. oy+16 and cols ox-1 .. ox+16 as
+  // the reference's rolls read them (row oy+23 for oy-1 when yi % 8 == 0,
+  // column x0-16+255 for ox-1 when xi == 0), and the first search box, rows
+  // and cols -8 .. +23 around the g = 0 window.
   const Window w0 = window(0.0f, 0.0f);
   int box_y = w0.y - kReach, box_x = w0.x - kReach, box_w = kBox;
   {
     const bool t_on = lane < kTmplSide;
-    const int t_x = clampi(ox - 1 + lane, 0, W - 1);
+    const int t_x = clampi(lane == 0 && xi == 0 ? x0 - kPad + kLanes - 1
+                                                : ox - 1 + lane,
+                           0, W - 1);
     float vt[kTmplLoads];
 #pragma unroll
     for (int j = 0; j < kTmplLoads; ++j) {
       const int r = w + kWarps * j;
-      const int y = clampi(oy - 1 + r, 0, H - 1);
+      const int y = clampi(r == 0 && yi % 8 == 0 ? oy - 1 + kTmplRows
+                                                 : oy - 1 + r,
+                           0, H - 1);
       vt[j] = (r < kTmplSide && t_on)
                   ? __ldg(tmpl + static_cast<size_t>(y) * W + t_x) : 0.0f;
     }

@@ -21,10 +21,12 @@ clipped to the slab and blended at the unclipped phase; the gates in-image,
 in-slab, min-eig, residual and valid.  No +-8 px drift guard and no clip of
 the input positions, unlike ``klt_pallas2``.
 
-One departure: the reference kernel rolls its 24 template rows circularly,
-so when the template's slab row ``yi`` is a multiple of 8 its upward
-gradient sample of row 0 reads slab row ``yi + 23`` instead of ``yi - 1``
-(ROADMAP.md Queue 3).  The port reads the true row.
+The reference kernel rolls its 24 template rows and its 256 slab columns
+circularly, so row -1 of the template's upward gradient reads slab row
+``yi + 23`` when the template's slab row ``yi`` is a multiple of 8, and
+column -1 of its leftward gradient reads slab column 255 when ``xi == 0``.
+The port reads those same rows and columns (``klt_v1_plain``), so its result
+is the reference's on every feature.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ R = (WIN - 1) // 2
 ROWS = 48  # slab rows
 LANES = 256  # slab lanes
 SLAB_PAD = 16  # the planes are edge-padded by 16 px top/left
+TEMPLATE_ROWS = 24  # slab rows the template's gradients are rolled within
 BF = 8  # features per reference program: N must be a multiple of it
 META_COLS = 5  # [py, px, qy, qx, valid]
 OUT_COLS = 5  # [x, y, ok, resid, min_eig]
@@ -138,16 +141,31 @@ def sample_map_onehot(fmap: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 # v1 LK: plain version, kernel wrapper, tracker
 # ---------------------------------------------------------------------------
 
-def sample_patches(img, oy, ox, fy, fx, n):
+def _ring(idx, ring):
+    """Indices read circularly within a per-feature block: ``ring`` = (base
+    (N,), period) maps ``idx`` to base + (idx - base) mod period; None keeps
+    them."""
+    if ring is None:
+        return idx
+    base, period = ring
+    base = base.to(torch.int64)[:, None]
+    return base + torch.remainder(idx - base, period)
+
+
+def sample_patches(img, oy, ox, fy, fx, n, row_ring=None, col_ring=None):
     """n x n bilinear patches with integer corners (oy, ox) + (i, j) and
     per-feature weights (fy, fx), reads clamped to the image.
+
+    ``row_ring`` / ``col_ring``: (base, period) of a block of rows / columns
+    that the reads wrap around in, as a reference kernel's circular roll of
+    its slab does (``_ring``); the wrapped index is then clamped.
 
     (N,) origins and weights -> (N, n, n), in the reference's operation
     order."""
     H, W = img.shape
     ar = torch.arange(n + 1, device=img.device)
-    rows = (oy.to(torch.int64)[:, None] + ar).clamp(0, H - 1)
-    cols = (ox.to(torch.int64)[:, None] + ar).clamp(0, W - 1)
+    rows = _ring(oy.to(torch.int64)[:, None] + ar, row_ring).clamp(0, H - 1)
+    cols = _ring(ox.to(torch.int64)[:, None] + ar, col_ring).clamp(0, W - 1)
     P = img[rows[:, :, None], cols[:, None, :]]  # (N, n+1, n+1)
     t, t01 = P[:, :-1, :-1], P[:, :-1, 1:]
     t10, t11 = P[:, 1:, :-1], P[:, 1:, 1:]
@@ -203,7 +221,7 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
     output."""
     H, W = tmpl.shape
     py, px, qy, qx, vf = meta.unbind(1)
-    y0, x0, _, _ = slab_geometry(meta, H, W)
+    y0, x0, yi, _ = slab_geometry(meta, H, W)
     y0f = y0.to(torch.float32) - SLAB_PAD
     x0f = x0.to(torch.float32) - SLAB_PAD
     hi_y, hi_x = ROWS - WIN - 2, LANES - WIN - 2
@@ -211,8 +229,19 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
     oy, fy = _register((py - R) - y0f, y0, hi_y)
     ox, fx = _register((px - R) - x0f, x0, hi_x)
     # Template on a 17x17 grid: the window plus the one-pixel ring the
-    # central differences read.
-    Tb = sample_patches(tmpl, oy - 1, ox - 1, fy, fx, WIN + 2)
+    # central differences read.  The reference loads TEMPLATE_ROWS slab rows
+    # from the 8-aligned row at or above the template's slab row yi, then
+    # rolls them up by yi % 8 and left by xi, circularly over those rows and
+    # the slab's LANES columns (klt_pallas.py:202-207, :248-251).  So grid
+    # row -1, which only the upward gradient of window row 0 reads, is slab
+    # row yi + 23 when yi % 8 == 0, and grid column -1, which only the
+    # leftward gradient of window column 0 reads, is slab column 255 when
+    # xi == 0 (a template more than 8 px left of the image); every other
+    # read lies inside both rings.
+    rows8 = y0 - SLAB_PAD + torch.div(yi, 8, rounding_mode="floor") * 8
+    Tb = sample_patches(tmpl, oy - 1, ox - 1, fy, fx, WIN + 2,
+                        row_ring=(rows8, TEMPLATE_ROWS),
+                        col_ring=(x0 - SLAB_PAD, LANES))
     WT = Tb[:, 1:-1, 1:-1]
     Ix = 0.5 * (Tb[:, 1:-1, 2:] - Tb[:, 1:-1, :-2])
     Iy = 0.5 * (Tb[:, 2:, 1:-1] - Tb[:, :-2, 1:-1])

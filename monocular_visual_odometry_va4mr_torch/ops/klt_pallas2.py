@@ -12,6 +12,14 @@ batched over features.  ``klt_lk.launches`` counts kernel launches.
 coarse prior or an explicit ``prior``, ``swap_planes`` for the backward pass
 (here a plain swap of the two planes), and the in-image gates.
 ``track_multilevel`` is the /16 prior -> /4 LK -> full-res LK chain.
+
+Where the reference kernel's 32-row search slab wraps (a search reaching
+past the slab's last row reads the row 32 above) and where its 4-feature
+sums make a runaway search's neighbours NaN, the port reads the true image
+and keeps each feature's sums its own (``csrc/klt_lk.cu`` lists the
+kernel's rolls).  ``stress_diag.reference_read_lk`` is a plain version
+with the reference's readings; with them the port fails ``chip_smoke.py``'s
+hard-realism gate on the card, so it keeps this one (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 

@@ -110,7 +110,7 @@ class SequenceScene:
 
 
 def drift(backend="xla", frames=45, image_shape=(480, 640), stride=4,
-          quality=QUALITY, seed=SEED, preset="parking", device="cpu",
+          quality=QUALITY, seed=SEED, preset="parking", device="cuda",
           root=None, start=0):
     """The bootstrap line, then one line a frame."""
     from ..dataio import datasets, synthetic

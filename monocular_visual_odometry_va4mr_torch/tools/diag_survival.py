@@ -36,7 +36,7 @@ IMAGE_SHAPE = (480, 640)
 
 def survival(f0=10, hops=8, image_shape=IMAGE_SHAPE, seed=SEED,
              num_frames=NUM_FRAMES, quality=0.03, fb_thresh=1.0,
-             backend="pallas2", device="cpu"):
+             backend="pallas2", device="cuda"):
     """The start line, then one line a hop."""
     from ..dataio import synthetic
     from ..ops import corners, image as imops, klt, klt_pallas, klt_pallas2

@@ -123,7 +123,7 @@ def errors(p, ok, ref, ref_ok):
 
 
 def diagnose(pair=(10, 11), image_shape=(480, 640), seed=11, num_frames=20,
-             device="cpu"):
+             device="cuda"):
     from ..dataio import synthetic
     from ..ops import corners
 

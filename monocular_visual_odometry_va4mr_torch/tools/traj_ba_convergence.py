@@ -58,7 +58,7 @@ def global_window(noisy, D, S, L):
         obs_mask=torch.from_numpy(obs_mask))
 
 
-def centralised(noisy, D, S, L, cam, device="cpu"):
+def centralised(noisy, D, S, L, cam, device="cuda"):
     """Camera centres of the local keyframes after the centralised solve."""
     from ..backend import ba
 

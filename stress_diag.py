@@ -14,6 +14,12 @@ a step loop like ``runner.run_sequence`` without its recovery, or with
                 so it draws as the CPU run does;
   card_plain    as ``card_cpudraw`` with the plain LK (``klt_lk_plain``) in
                 place of the kernel;
+  card_refread  as ``card_cpudraw`` with ``reference_read_lk`` in place of
+                the kernel: a plain LK that reads what the JAX package's
+                ``_klt2_kernel`` reads, where the port reads the true image
+                (a diagnostic of this script, for the attribution of the
+                hard-realism ATE tail; the package has no such option);
+  card_xla      as ``card_cpudraw`` on the gather tracker (``xla``);
   cpu           the CPU path (the plain LK) with the same draws (it rounds
                 alike on any number of threads).
 
@@ -21,14 +27,22 @@ With ``cpu`` among the ways and no ``--recover``, every step of the ``cpu``
 run is replayed on the card from the CPU's own state, image and draws
 (``chip_smoke.replay``, for ``card_cpudraw`` and ``card_plain``), so each
 step's difference is one step's rounding and not what came before.  Prints
-one JSON line per seed and a summary line.  With no card it runs the CPU
-way only.
+one JSON line per seed (per way: ATE, LOST, the tracked count of each step)
+and a summary line (per way: the ATEs, how many pass the scenario's ATE
+limit, LOST, and the median and 95th percentile of the tracked counts over
+every step of every seed).  With no card it runs the CPU way only.
 
     python3 stress_diag.py [--scenario hard_realism|clean|
         photometric_occluder|kitti_preset] [--seeds 0,1,2,3,4] [--frames N]
-        [--ways card,card_cpudraw,card_plain,cpu] [--recover]
-        [--backend pallas2|pallas|xla]
+        [--ways card,card_cpudraw,card_plain,card_refread,card_xla,cpu]
+        [--recover] [--backend pallas2|pallas|xla]
         [--write-kitti DIR]
+
+The attribution of the hard-realism ATE tail on the card (the seeds
+written out):
+
+    python3 stress_diag.py --seeds 0,1,...,19 \
+        --ways card_refread,card_cpudraw,card_xla
 
 ``--write-kitti DIR`` writes the ``kitti_preset`` frames as PNG files in
 the KITTI layout, for the CLIs of both packages: ``python -m
@@ -97,6 +111,93 @@ def make_vo(scene, config, device, sampler, backend="pallas2"):
                           sampler=sampler, seed=0)
 
 
+SLAB_ROWS = 32  # rows of the reference kernel's search slab
+GROUP = 4  # features the reference kernel sums in one 128-lane tile
+
+
+def slab_top(qy):
+    """Image row of the first row of the reference kernel's search slab
+    for the integer search origin ``qy`` (window top-left row): the
+    8-aligned padded row at or above ``qy + PAD - 8`` (``_prep_plane``'s
+    ``y0``).  A search read of row y >= slab_top + SLAB_ROWS reads row
+    y - SLAB_ROWS there, for the registration and the search shifts roll
+    the slab circularly (``klt_pallas2.py:119-120, :191-193``)."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+
+    return torch.div(qy + (k2.PAD - 8), 8, rounding_mode="floor") * 8 - k2.PAD
+
+
+def group_sums(s):
+    """Per-feature window sums ``s`` (N,) as the reference kernel returns
+    them: it sums the lanes of GROUP features (4k .. 4k+3) with one matmul
+    by a block-diagonal 0/1 matrix (``gsum``, ``klt_pallas2.py:151-155``),
+    so one feature's sum that is not finite meets the zeros of the other
+    columns, and inf * 0 makes all GROUP sums NaN."""
+    import torch
+
+    bad = ~torch.isfinite(s)
+    n = s.shape[0]
+    bad = torch.cat([bad, bad.new_zeros((-n) % GROUP)])
+    bad = bad.view(-1, GROUP).any(1).repeat_interleave(GROUP)[:n]
+    return torch.where(bad, torch.full_like(s, float("nan")), s)
+
+
+def reference_read_lk(tmpl, srch, feat, valid, *, win, num_iters, eps,
+                      min_eig_threshold, max_residual):
+    """``klt_lk_plain`` reading what the reference kernel reads: search rows
+    past its slab 32 rows up (``slab_top``), and sums NaN across a group
+    where one is not finite (``group_sums``).  Same inputs and (N, 5)
+    output as ``klt_lk``; ``tests/test_torch_klt.py`` holds it against the
+    reference kernel feature for feature.  Its groups are the call's
+    features 4k .. 4k+3, as the reference's are of its table, which it pads
+    to a multiple of 128."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
+
+    tx, ty, phx, phy, qx, qy, gx, gy = feat.unbind(1)
+    ring = (slab_top(qy), SLAB_ROWS)
+    Tb = v1.sample_patches(tmpl, ty - 1, tx - 1, phy, phx, win + 2)
+    WT = Tb[:, 1:-1, 1:-1]
+    Ix = 0.5 * (Tb[:, 1:-1, 2:] - Tb[:, 1:-1, :-2])
+    Iy = 0.5 * (Tb[:, 2:, 1:-1] - Tb[:, :-2, 1:-1])
+    gxx = (Ix * Ix).sum((1, 2))
+    gxy = (Ix * Iy).sum((1, 2))
+    gyy = (Iy * Iy).sum((1, 2))
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4.0 * det,
+                                                 min=0.0)))
+    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det,
+                          torch.zeros_like(det))
+
+    def sample_window(gy, gx):
+        ny = torch.floor(gy).clamp(-8.0, 7.0)
+        nx = torch.floor(gx).clamp(-8.0, 7.0)
+        return v1.sample_patches(srch, qy + ny, qx + nx, gy - ny, gx - nx, win,
+                                 row_ring=ring)
+
+    frozen = torch.zeros_like(valid)
+    for _ in range(num_iters):
+        diff = sample_window(gy, gx) - WT
+        b0 = group_sums((diff * Ix).sum((1, 2)))
+        b1 = group_sums((diff * Iy).sum((1, 2)))
+        d0 = -(gyy * b0 - gxy * b1) * inv_det
+        d1 = -(-gxy * b0 + gxx * b1) * inv_det
+        gx = torch.where(frozen, gx, gx + d0)
+        gy = torch.where(frozen, gy, gy + d1)
+        frozen = frozen | ((d0 * d0 + d1 * d1) < eps * eps)
+
+    resid = group_sums((sample_window(gy, gx) - WT).abs().sum((1, 2))) / (
+        win * win)
+    drift_ok = (gx > -7.99) & (gx < 7.99) & (gy > -7.99) & (gy < 7.99)
+    eig_ok = (min_eig / (win * win)) > min_eig_threshold
+    ok = drift_ok & eig_ok & (resid < max_residual) & valid
+    return torch.stack([gx, gy, ok.to(torch.float32), resid, min_eig], 1)
+
+
 def runner_loop(vo, frames, seed, b):
     """``runner.run_sequence`` itself, recovery included: (frame ids,
     positions, statuses, inliers, tracked, re-bootstraps that tracked)."""
@@ -118,8 +219,9 @@ def summary(scene, run):
     ids, pos, stat, inl, trk, _ = run
     gt = scene.poses_WC[ids, :3, 3]
     lost = [f for f, s in zip(ids, stat) if s != 0]
+    # trk[0] is the bootstrap's; the rest are the steps' tracked counts.
     out = dict(ate=float(ate.ate_rmse(pos, gt)), lost=len(lost),
-               first_lost=lost[:8])
+               first_lost=lost[:8], tracked=list(trk[1:]))
     if isinstance(run[5], int):
         out["recoveries"] = run[5]
     return out
@@ -141,7 +243,9 @@ def main():
     ap.add_argument("--scenario", default="hard_realism")
     ap.add_argument("--seeds", default="0,1,2,3,4")
     ap.add_argument("--ways", default="card,card_cpudraw,card_plain,cpu",
-                    help="which of the ways to run on a card")
+                    help="which of the ways to run on a card (card, "
+                    "card_cpudraw, card_plain, card_refread, card_xla, "
+                    "cpu)")
     ap.add_argument("--backend", default="pallas2",
                     choices=("pallas2", "pallas", "xla"),
                     help="the tracker of every way")
@@ -185,16 +289,20 @@ def main():
         if "card" in ways:
             vo = make_vo(scene, cfg, "cuda", None, args.backend)
             row["card"] = summary(scene, loop(vo, frames, seed, b))
-        for way, lk in (("card_cpudraw", k2.klt_lk),
-                        ("card_plain", k2.klt_lk_plain)):
+        for way, lk, backend in (
+                ("card_cpudraw", k2.klt_lk, args.backend),
+                ("card_plain", k2.klt_lk_plain, args.backend),
+                ("card_refread", reference_read_lk, args.backend),
+                ("card_xla", k2.klt_lk, "xla")):
             if way not in ways:
                 continue
             kernel, k2.klt_lk = k2.klt_lk, lk
             try:
-                vo = make_vo(scene, cfg, "cuda", CpuDraws(), args.backend)
+                vo = make_vo(scene, cfg, "cuda", CpuDraws(), backend)
                 run = loop(vo, frames, seed, b)
                 row[way] = summary(scene, run)
-                if cpu is not None and not args.recover:
+                if (cpu is not None and not args.recover
+                        and way in ("card_cpudraw", "card_plain")):
                     row[way]["parts_from_cpu"] = parting(run, cpu)
                     row[way]["replay"] = replay(vo, frames, seed, cpu)
             finally:
@@ -202,10 +310,16 @@ def main():
         row["s"] = time.perf_counter() - t0
         print(f"{args.scenario} " + json.dumps(row), flush=True)
         rows.append(row)
+    tracked = {w: [n for r in rows for n in r[w]["tracked"]] for w in ways}
     print("summary " + json.dumps(dict(
         scenario=args.scenario, max_ate=max_ate,
         ates={w: [r[w]["ate"] for r in rows] for w in ways},
-        lost={w: [r[w]["lost"] for r in rows] for w in ways})), flush=True)
+        over_max_ate=None if max_ate is None else {
+            w: sum(not r[w]["ate"] <= max_ate for r in rows) for w in ways},
+        lost={w: [r[w]["lost"] for r in rows] for w in ways},
+        tracked_median={w: float(np.median(t)) for w, t in tracked.items()},
+        tracked_p95={w: float(np.percentile(t, 95))
+                     for w, t in tracked.items()})), flush=True)
 
 
 if __name__ == "__main__":

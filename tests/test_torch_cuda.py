@@ -167,6 +167,41 @@ def test_lk_windows_at_every_border_and_corner(cuda, win, iters):
         assert torch.allclose(out_k[:, 3], out_p[:, 3], rtol=1e-4, atol=1e-4)
 
 
+def test_lk_runaway_searches(cuda):
+    """Searches that run away and overflow (every 4th feature, on a part
+    of the template plane that is flat but for tiny noise, against a
+    textured search plane): kernel and plain version give NaN in the same
+    places, and the other features alike.  (The reference would fail the
+    3 others of each runaway's group too; the port keeps each feature's
+    sums its own, ROADMAP.md Queue 3.)"""
+    gen = torch.Generator().manual_seed(5)
+    H, W = 120, 160
+    tmpl, srch = shifted_pair(gen, H, W, 1, 2)
+    tmpl[:, :60] = 100.0 + 0.01 * torch.randn(H, 60, generator=gen)
+    N = 256
+    pts = torch.stack([torch.rand(N, generator=gen) * 70 + 70,
+                       torch.rand(N, generator=gen) * 80 + 20], 1)
+    pts[0::4, 0] = torch.rand(N // 4, generator=gen) * 25 + 15
+    po, pp = tk2._origin_and_phase(pts, 15)
+    qo, qp = tk2._origin_and_phase(pts + torch.tensor([2.0, 1.0]), 15)
+    feat = torch.cat([po, pp, qo, qp], 1).contiguous()
+    valid = torch.ones(N, dtype=torch.bool)
+    kw = dict(win=15, num_iters=8, eps=0.01, min_eig_threshold=1e-4,
+              max_residual=20.0)
+    args = [t.to(cuda) for t in (tmpl, srch, feat, valid)]
+    out_k = tk2.klt_lk(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = tk2.klt_lk_plain(*args, **kw)
+    assert torch.isnan(out_p[0::4, 0]).sum() > 0.5 * (N // 4)
+    assert (out_k[:, 2] == out_p[:, 2]).float().mean() >= 0.99
+    for col in (0, 1, 3):
+        assert torch.equal(torch.isnan(out_k[:, col]),
+                           torch.isnan(out_p[:, col]))
+    fin = torch.isfinite(out_p[:, :2]).all(1)
+    err = (out_k[fin, :2] - out_p[fin, :2]).abs().max()
+    assert err < 1e-3, float(err)
+
+
 def v1_meta(p, q, valid):
     return torch.stack([p[:, 1], p[:, 0], q[:, 1], q[:, 0], valid],
                        1).contiguous()
@@ -290,6 +325,36 @@ def test_v1_predictions_at_the_slab_clip(cuda, side):
     assert cond.sum() > 0.5 * N
     err = (out_k[cond, :2] - out_p[cond, :2]).abs().max()
     assert err < 1e-3, float(err)
+
+
+def wrap_inputs(gen, H, W, device, N=1024):
+    """``chip_smoke.bench_inputs``' tuple on a smooth plane: (template
+    pyramid, search pyramid, positions, valid, prior, iterations)."""
+    tmpl = smooth_image(gen, H, W).to(device)
+    pts = torch.stack([torch.rand(N, generator=gen) * W,
+                       torch.rand(N, generator=gen) * H], 1).to(device)
+    valid = (torch.rand(N, generator=gen) < 0.9).to(device)
+    return (tmpl,), (tmpl,), pts, valid, None, (6, 6, 4)
+
+
+@pytest.mark.parametrize("name", ["klt_lk", "klt_v1"])
+@pytest.mark.parametrize("H,W", [(376, 1241), (600, 800)])
+def test_kernel_where_the_reference_slab_wraps(cuda, name, H, W):
+    """``chip_smoke.wrap_call``'s input at the main path's and the Malaga
+    preset's full resolution: every ``klt_lk`` search starts with rows of
+    its window where the reference reads 32 rows up (the port reads the
+    true rows), every ``klt_v1`` template has its upward gradient's row 0
+    read 24 rows down, as the reference reads it.  Kernel and plain version
+    read the same rows."""
+    gen = torch.Generator().manual_seed(H + (name == "klt_v1"))
+    _, kernel, plain, args, iters, extra, _ = chip_smoke.wrap_call(
+        name, wrap_inputs(gen, H, W, cuda))
+    before = kernel.launches
+    out_k = kernel(*args, num_iters=iters, **extra)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    out_p = plain(*args, num_iters=iters, **extra)
+    assert_kernel_agrees(out_k, out_p, 100)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

@@ -264,6 +264,6 @@ def test_centralised_solution_equals_the_jax_scripts():
     theirs = jax_tool("traj_ba_convergence").global_window(jnoisy, D, S, L)
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    pos = traj_ba_convergence.centralised(noisy, D, S, L, cam)
+    pos = traj_ba_convergence.centralised(noisy, D, S, L, cam, device="cpu")
     np.testing.assert_allclose(pos, ref_pos, rtol=0, atol=1e-3)
     assert jnp.isfinite(ref.T_CW).all()
