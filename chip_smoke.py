@@ -33,7 +33,14 @@ exits nonzero:
    3 times per step.  Health: 0 LOST frames, a finite trajectory, ATE <= 2%
    of the path (``bench.py``'s gate without its reference-CPU term).
    ``torch.profiler`` traces 8 of the steps (left out of the step times):
-   device time per step, all kernels and ``klt_lk``'s alone.
+   device time per step, all kernels and ``klt_lk``'s alone (its device
+   events must be 3 a step), and the host's dispatches.  On the card ``step`` replays the captured step (a CUDA
+   graph); the same frames then run through its body ``_step_impl`` op by
+   op on a VO of the same seed (``eager_path``), and the poses must be bit
+   for bit the replayed ones, with a skip graph and a BA graph captured
+   and more than one BA run.  The ``step_graph`` line: host ms, host
+   dispatches, device events and device ms a frame, replayed and eager;
+   capture seconds per graph; peak device memory of the replayed run.
 3b. A preset at its own geometry: ``tools/bench_datasets``' Malaga run
    (``tune_for_tpu(malaga_config())``, the only preset with ``mid_iters=4``,
    KLT bootstrap, quality 0.03) on a 95-frame textured scene (seed 11) at
@@ -50,7 +57,9 @@ exits nonzero:
    frames 5..99 uploaded as uint8, blocks of 16 with a padded tail.
    ``klt_lk`` must have launched 3 times per frame; statuses equal to, and
    positions within 1e-3 of the path of, a step loop over the same frames
-   with the same per-frame generators; the health gate of phase 3.
+   with the same per-frame generators; the health gate of phase 3.  A
+   block of 8 frames under the profiler: host dispatches and device events
+   a frame, with 3 ``klt_lk`` device events a frame.
 5. The v1 LK kernel (``klt_v1``) against its plain version, the same three
    shapes and tolerances, and an input whose every template meets the
    reference's template row wrap (``wrap_call``: slab row yi % 8 == 0).
@@ -162,7 +171,7 @@ sys.path.insert(0, REPO)
 try:
     from monocular_visual_odometry_va4mr_torch.tools.harness import (
         build_kernels as harness_build, device_line, device_profile, healthy,
-        host_ms, positions_of, profile_calls, render_frames,
+        host_ms, positions_of, profile_calls, profile_steps, render_frames,
         trajectory_health)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: run from a checkout of the repo ({e})")
@@ -524,13 +533,14 @@ def phase_kernels(name, inputs, prefix=""):
             + [wrap_call(name, inputs, prefix)]]
 
 
-def phase_main_path(scene, frames, vo):
+def phase_main_path(scene, frames, vo, cfg, cam):
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
 
     dev_frames = [torch.as_tensor(f).to(vo.device) for f in frames]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     b = BOOTSTRAP_STRIDE
     k2.klt_lk.launches = 0
     t0 = time.perf_counter()
@@ -558,6 +568,7 @@ def phase_main_path(scene, frames, vo):
         if i == profiled[-1]:
             prof.stop()
     launches = k2.klt_lk.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_steps = NUM_FRAMES - b - 1
     expected = 3 * b + 3 * n_steps  # 3 per bootstrap hop + 3 per step
     if launches != expected:
@@ -565,15 +576,98 @@ def phase_main_path(scene, frames, vo):
                            f"path, expected {expected}")
     est = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses])
     res = trajectory_health(scene, range(b, NUM_FRAMES), est, statuses)
+    profile = device_profile(prof, PROFILE_STEPS, "klt_lk_kernel")
     res.update(ba_triggers=vo.ba_runs, bootstrap_s=boot_s,
                step_ms_median=statistics.median(step_ms),
                step_ms_mean=statistics.fmean(step_ms),
                launches=launches, launches_expected=expected,
-               profile=device_profile(prof, PROFILE_STEPS, "klt_lk_kernel"))
+               profile=profile)
     print("main_path " + json.dumps(res), flush=True)
     if not healthy(res):
         raise RuntimeError(f"main path unhealthy: {res}")
+    # The launch counts of replayed steps come from the capture; the
+    # profiler's device events show that each replay ran the kernel 3 times.
+    if profile["kernel_calls_per_step"] != 3:
+        raise RuntimeError(f"the profiled steps ran klt_lk_kernel "
+                           f"{profile['kernel_calls_per_step']} times a "
+                           f"step, expected 3: {profile}")
+
+    # The same frames through the step's body op by op, on a VO of the same
+    # config and seed (the same bootstrap and draws): bit for bit the poses
+    # of the replayed graph.
+    eager = eager_path(dev_frames, cfg, cam)
+    graphs = vo.graphs
+    bit_equal = (len(eager["poses"]) == len(poses) and all(
+        np.array_equal(p, q) for p, q in zip(poses, eager["poses"])))
+    first_diff = next((b + k for k, (p, q) in enumerate(
+        zip(poses, eager["poses"])) if not np.array_equal(p, q)), None)
+    res["step_graph"] = sg = dict(
+        steps=n_steps, ba_triggers=vo.ba_runs, bit_equal=bit_equal,
+        first_differing_frame=first_diff,
+        host_ms_per_frame=dict(graph=res["step_ms_median"],
+                               eager=statistics.median(eager["step_ms"])),
+        dispatches_per_frame=dict(
+            graph=profile["dispatches_per_step"],
+            eager=eager["profile"]["dispatches_per_step"]),
+        device_events_per_frame=dict(
+            graph=profile["launches_per_step"],
+            eager=eager["profile"]["launches_per_step"]),
+        device_ms_per_frame=dict(
+            graph=profile["device_ms_per_step"],
+            eager=eager["profile"]["device_ms_per_step"]),
+        capture_s={"/".join(str(k) for k in key): v
+                   for key, v in graphs.capture_s.items()},
+        graphs=len(graphs.graphs), replays=graphs.replays,
+        peak_device_mb=peak_mb)
+    print("step_graph " + json.dumps(sg), flush=True)
+    if not bit_equal:
+        raise RuntimeError(f"the replayed step differs from _step_impl: {sg}")
+    if sg["graphs"] != 2 or vo.ba_runs < 2:
+        raise RuntimeError(f"expected a skip and a BA graph, the BA run more "
+                           f"than once: {sg}")
     return res
+
+
+def eager_step(vo, state, image, generator=None):
+    """``vo``'s step run op by op through ``_step_impl``, as ``step`` runs
+    it on the CPU."""
+    new = vo._step_impl(state, image, vo.step_draws(generator),
+                        vo.ba_due(state))
+    new.host_frame = state.host_frame_idx() + 1
+    return new
+
+
+def eager_path(dev_frames, cfg, cam):
+    """The main path's bootstrap and steps on a new VO of ``cfg``, each step
+    through ``eager_step``: poses, step ms over the same frames, and a
+    profiler window over the same steps."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    vo = VisualOdometry(cam, cfg, DEVICE, seed=0)
+    b = BOOTSTRAP_STRIDE
+    state = vo.bootstrap(dev_frames[0], dev_frames[b],
+                         intermediate=dev_frames[1:b])
+    poses, step_ms = [state.T_CW.cpu().numpy()], []
+    profiled = range(PROFILE_START, PROFILE_START + PROFILE_STEPS)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    for i in range(b + 1, NUM_FRAMES):
+        if i == profiled.start:
+            prof.start()
+        t0 = time.perf_counter()
+        state = eager_step(vo, state, dev_frames[i])
+        torch.cuda.synchronize()
+        if i >= TIMED_START and i not in profiled:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        poses.append(state.T_CW.cpu().numpy())
+        if i == profiled[-1]:
+            prof.stop()
+    return dict(poses=poses, step_ms=step_ms,
+                profile=device_profile(prof, PROFILE_STEPS, "klt_lk_kernel"))
 
 
 def phase_presets(smi):
@@ -684,6 +778,17 @@ def phase_stream(scene, frames, vo):
                                               + list(Ts)),
                                  [int(s0.status)] + list(sts))
 
+    # The block driver's host dispatches and device events per frame over
+    # one block of PROFILE_STEPS frames (its upload and read-back included).
+    prof_ids = ids[:PROFILE_STEPS]
+    res["profile"] = profile_steps(
+        lambda: scan_driver.run_streaming(
+            vo, state0, ((i, u8[i]) for i in prof_ids), 0,
+            block=len(prof_ids)), len(prof_ids), DEVICE)
+    if res["profile"]["klt_lk_per_step"] != 3:
+        raise RuntimeError(f"the profiled block ran klt_lk_kernel "
+                           f"{res['profile']['klt_lk_per_step']} times a "
+                           f"frame, expected 3: {res['profile']}")
     four = dict(block_uint8=res, loop_uint8=ate(state0, loop_T, loop_status),
                 block_float32=ate(state0f, outs_f.T_CW, outs_f.status),
                 loop_float32=ate(state0f, loop_Tf, loop_status_f))
@@ -737,11 +842,11 @@ class CountingStep:
         self.first = None
         vo.step = self
 
-    def __call__(self, state, image, generator=None):
+    def __call__(self, state, image, generator=None, **kw):
         if self.first is None:
             self.first = time.perf_counter()
         self.calls += 1
-        return self.inner(state, image, generator=generator)
+        return self.inner(state, image, generator=generator, **kw)
 
 
 def run_path(scene, frames, vo, num_frames):
@@ -911,7 +1016,7 @@ def phase_sift(scene, frames, cam):
     f1 = sift.detect_and_compute(img1, **kw)
     _, ok = match.match_ratio(f0.desc, f0.valid, f1.desc, f1.valid,
                               ratio=sc.ratio)
-    dev_ms, launches = profile_calls(
+    dev_ms, launches, _ = profile_calls(
         lambda: sift.detect_and_compute(img0, **kw))
     paired, _, dpos, dori = pair_keypoints(
         f0, sift.detect_and_compute(torch.as_tensor(frames[0]), **kw))
@@ -1318,12 +1423,14 @@ class CpuDraws:
     """A sampler for ``VisualOdometry(sampler=...)`` that draws each RANSAC
     bank from a CPU generator seeded with the call's generator's seed, one
     CPU generator per call's generator, so a run on the card draws exactly
-    as the same run on the CPU does."""
+    as the same run on the CPU does.  ``draw`` gives the uniforms (the
+    captured step takes them as its draws), the call maps them onto the
+    valid rows (``ransac.select_minimal_sets``)."""
 
     def __init__(self):
         self._gens = {}
 
-    def __call__(self, generator, valid, num_hypotheses, sample_size):
+    def draw(self, generator, num_hypotheses, sample_size):
         import torch
         from monocular_visual_odometry_va4mr_torch.ops import ransac
 
@@ -1331,9 +1438,14 @@ class CpuDraws:
         if key not in self._gens:  # keeps ``generator`` alive: ids stay unique
             self._gens[key] = (generator, torch.Generator().manual_seed(
                 generator.initial_seed()))
-        idx, ok = ransac.sample_minimal_sets(self._gens[key][1], valid.cpu(),
-                                             num_hypotheses, sample_size)
-        return idx.to(valid.device), ok.to(valid.device)
+        return ransac.draw_uniforms(self._gens[key][1], num_hypotheses,
+                                    sample_size)
+
+    def __call__(self, generator, valid, num_hypotheses, sample_size):
+        from monocular_visual_odometry_va4mr_torch.ops import ransac
+
+        u = self.draw(generator, num_hypotheses, sample_size)
+        return ransac.select_minimal_sets(u.to(valid.device), valid)
 
 
 def step_loop(vo, frames, seed, b, keep_states=False):
@@ -1642,7 +1754,8 @@ def main():
     res, ctx = {}, {}
     for name, phase in (
             ("kernels_klt_lk", lambda: phase_kernels("klt_lk", inputs)),
-            ("main_path", lambda: phase_main_path(scene, frames, vo)),
+            ("main_path", lambda: phase_main_path(scene, frames, vo, cfg,
+                                                  cam)),
             ("presets", lambda: phase_presets(smi)),
             ("stream_path", lambda: phase_stream(scene, frames, vo)),
             ("kernels_klt_v1", lambda: phase_kernels("klt_v1", inputs)),

@@ -101,13 +101,15 @@ def solve_camera_system(S: torch.Tensor, rhs: torch.Tensor,
     frozen."""
     W = rhs.shape[0]
     S = S.clone()
-    S[:n_fixed] = 0.0
-    S[:, :n_fixed] = 0.0
+    # fill_, not ``= 0.0``: no scalar tensor made on the host inside the
+    # captured step.
+    S[:n_fixed].fill_(0.0)
+    S[:, :n_fixed].fill_(0.0)
     eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
     for i in range(n_fixed):
         S[i, i] = eye6
     rhs = rhs.clone()
-    rhs[:n_fixed] = 0.0
+    rhs[:n_fixed].fill_(0.0)
     S_mat = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
     # solve_ex: a singular system gives non-finite values (as in the
     # reference) instead of raising; the accept guard rejects them.

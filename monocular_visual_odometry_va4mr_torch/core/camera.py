@@ -2,7 +2,9 @@
 
 The intrinsics are four Python floats, rounded to float32 as the reference
 stores them, so the camera lives on no device: every method takes its
-device from the tensors it is given, or from ``device``.
+device from the tensors it is given, or from ``device``.  Its constant
+tensors are made once per device (``linalg.constant``), so a captured step
+(``pipeline/vo.py``) reads them without a copy from the host.
 """
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .linalg import constant
 
 
 class Camera(NamedTuple):
@@ -27,15 +31,13 @@ class Camera(NamedTuple):
                       cx=float(K[0, 2]), cy=float(K[1, 2]))
 
     def _scalars(self, device):
-        return torch.tensor([self.fx, self.fy, self.cx, self.cy],
-                            dtype=torch.float32, device=device)
+        return constant([self.fx, self.fy, self.cx, self.cy], device)
 
     def matrix(self, device=None) -> torch.Tensor:
         """Dense 3x3 intrinsics matrix K."""
-        return torch.tensor([[self.fx, 0.0, self.cx],
-                             [0.0, self.fy, self.cy],
-                             [0.0, 0.0, 1.0]],
-                            dtype=torch.float32, device=device)
+        return constant([[self.fx, 0.0, self.cx],
+                         [0.0, self.fy, self.cy],
+                         [0.0, 0.0, 1.0]], device)
 
     def inv_matrix(self, device=None) -> torch.Tensor:
         """Closed-form K^-1, computed in float32 like the reference."""

@@ -2,10 +2,28 @@
 
 Batched 2x2 / 3x3 inverses in adjugate form: pure elementwise arithmetic over
 any leading batch shape, used by every small solve on the hot path.
+``constant`` gives a small constant tensor on a device, made there once and
+kept, so a captured step (``pipeline/vo.py``) reads it and copies nothing
+from the host.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CONSTANTS = {}
+
+
+def constant(values, device) -> torch.Tensor:
+    """The float32 tensor of the nested list ``values`` on ``device``, made
+    at the first call for these values and device and the same tensor at
+    every later one.  Callers never write to it."""
+    a = np.asarray(values, np.float32)
+    device = torch.device("cpu" if device is None else device)
+    key = (a.shape, a.tobytes(), device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.from_numpy(a).to(device)
+    return _CONSTANTS[key]
 
 
 def _safe_det(det: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,27 @@
 """The fixed-shape per-frame VO state (port of ``core/state.py``).
 
 ``FrameState`` is a dataclass of tensors with the reference's fields; one
-step hands it to the next.  One departure: ``frame_idx`` is a Python int,
-because the host needs it anyway (the in-step BA cadence is decided on the
-host, ``pipeline/vo.py``), and keeping it on the host costs no sync.
+step hands it to the next.  ``frame_idx`` is a device int32 scalar, as in
+the reference, so the step reads it without the host.  Beside the fields a
+state carries ``host_frame``, the same index on the host, set by the code
+that makes the state (``init_state``, the bootstrap, the step,
+``from_numpy``) and never read back from the device; the drivers pick the
+in-step BA cadence from it (``pipeline/vo.py``).
 
 ``to_numpy`` / ``from_numpy`` carry a state across to and from the JAX
 package: a dict of numpy arrays, one entry per field, with
 ``prev_pyramid`` as a tuple (``from_numpy`` also takes a JAX ``FrameState``
 itself).
+
+``Packing`` lays a fixed set of tensors out in one flat byte buffer, each a
+view of it: the captured step (``pipeline/vo.py``) keeps its state there and
+copies a whole state with one copy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +35,7 @@ STATUS_LOST = 1
 @dataclasses.dataclass
 class FrameState:
     # --- pose ---
-    frame_idx: int
+    frame_idx: torch.Tensor  # () int32 frame counter
     T_CW: torch.Tensor  # (4,4) f32 current extrinsics (world -> camera)
 
     # --- landmark-backed tracks ---
@@ -63,8 +71,47 @@ class FrameState:
     n_inliers: torch.Tensor  # () int32
     n_tracked: torch.Tensor  # () int32
 
+    # Not a field (no annotation): ``frame_idx`` on the host, or None where
+    # the code that made the state did not set it.
+    host_frame = None
+
     def replace(self, **kw) -> "FrameState":
-        return dataclasses.replace(self, **kw)
+        """A copy with the fields ``kw`` replaced; ``host_frame`` goes with
+        it unless ``frame_idx`` is replaced."""
+        new = dataclasses.replace(self, **kw)
+        if "frame_idx" not in kw:
+            new.host_frame = self.host_frame
+        return new
+
+    def host_frame_idx(self) -> int:
+        """``frame_idx`` as a host int (``host_frame``).  Raises where the
+        code that made the state did not set it: nothing reads the index
+        back from the device."""
+        if self.host_frame is None:
+            raise ValueError("the state's frame index is not known on the "
+                             "host: set host_frame where the state is made")
+        return self.host_frame
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every field's tensor in field order, the pyramid's planes in
+        place of ``prev_pyramid``."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out.extend(v if f.name == "prev_pyramid" else (v,))
+        return out
+
+    def with_tensors(self, tensors: Sequence[torch.Tensor]) -> "FrameState":
+        """A state of this one's layout made of ``tensors`` (as ``tensors``
+        lists them); ``host_frame`` is not carried."""
+        it = iter(tensors)
+        kw = {}
+        for f in dataclasses.fields(self):
+            if f.name == "prev_pyramid":
+                kw[f.name] = tuple(next(it) for _ in self.prev_pyramid)
+            else:
+                kw[f.name] = next(it)
+        return FrameState(**kw)
 
     def to_numpy(self) -> dict:
         out = {}
@@ -72,8 +119,6 @@ class FrameState:
             v = getattr(self, f.name)
             if f.name == "prev_pyramid":
                 out[f.name] = tuple(p.detach().cpu().numpy() for p in v)
-            elif f.name == "frame_idx":
-                out[f.name] = np.asarray(v, np.int32)
             else:
                 out[f.name] = v.detach().cpu().numpy()
         return out
@@ -84,16 +129,65 @@ class FrameState:
         with the fields as attributes (a JAX ``FrameState``: each field is
         read through ``np.asarray``)."""
         kw = {}
+        host = None
         for f in dataclasses.fields(FrameState):
             v = d[f.name] if isinstance(d, dict) else getattr(d, f.name)
             if f.name == "prev_pyramid":
                 kw[f.name] = tuple(torch.as_tensor(np.array(p)).to(device)
                                    for p in v)
             elif f.name == "frame_idx":
-                kw[f.name] = int(v)
+                # int32 whatever it was saved as (older checkpoints: int64).
+                host = int(np.asarray(v))
+                kw[f.name] = torch.tensor(host, dtype=torch.int32,
+                                          device=device)
             else:
                 kw[f.name] = torch.as_tensor(np.array(v)).to(device)
-        return FrameState(**kw)
+        state = FrameState(**kw)
+        state.host_frame = host
+        return state
+
+
+class Packing:
+    """Tensors of fixed shapes and dtypes laid out in one flat uint8 buffer
+    of ``nbytes`` bytes, each at an offset aligned to 16 bytes, so that each
+    is a view of the buffer and the whole set is copied with one copy."""
+
+    ALIGN = 16
+
+    def __init__(self, like: Sequence[torch.Tensor]):
+        self.specs = [(tuple(t.shape), t.dtype) for t in like]
+        self.offsets = []
+        end = 0
+        for shape, dtype in self.specs:
+            start = -(-end // self.ALIGN) * self.ALIGN
+            self.offsets.append(start)
+            end = start + math.prod(shape) * dtype.itemsize
+        self.nbytes = -(-end // self.ALIGN) * self.ALIGN
+
+    def views(self, buf: torch.Tensor) -> List[torch.Tensor]:
+        """The tensors as views of ``buf`` (``(..., nbytes)`` uint8: each
+        view then has the leading dimensions of ``buf``)."""
+        if buf.dtype != torch.uint8 or buf.shape[-1] != self.nbytes:
+            raise ValueError(f"a packing of {self.nbytes} bytes needs a uint8 "
+                             f"buffer of that last dimension; got "
+                             f"{buf.dtype} {tuple(buf.shape)}")
+        lead = tuple(buf.shape[:-1])
+        return [buf[..., o:o + math.prod(s) * dt.itemsize].view(dt)
+                .view(lead + s) for o, (s, dt) in zip(self.offsets,
+                                                      self.specs)]
+
+    def check(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Raise unless ``tensors`` have this packing's shapes and dtypes."""
+        got = [(tuple(t.shape), t.dtype) for t in tensors]
+        if got != self.specs:
+            raise ValueError(f"tensors {got} do not fit the packing "
+                             f"{self.specs}")
+
+    def pack(self, buf: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
+        """Copy ``tensors`` into their views of ``buf``."""
+        self.check(tensors)
+        for view, t in zip(self.views(buf), tensors):
+            view.copy_(t)
 
 
 def init_state(config: PipelineConfig, pyramid: Tuple[torch.Tensor, ...],
@@ -110,8 +204,8 @@ def init_state(config: PipelineConfig, pyramid: Tuple[torch.Tensor, ...],
     def zeros(shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return FrameState(
-        frame_idx=0,
+    state = FrameState(
+        frame_idx=zeros((), i32),
         T_CW=torch.eye(4, dtype=f32, device=device),
         lm_xyz=zeros((K, 3)),
         lm_uv=zeros((K, 2)),
@@ -135,3 +229,5 @@ def init_state(config: PipelineConfig, pyramid: Tuple[torch.Tensor, ...],
         n_inliers=zeros((), i32),
         n_tracked=zeros((), i32),
     )
+    state.host_frame = 0
+    return state

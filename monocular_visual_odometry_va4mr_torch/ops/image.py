@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.linalg import constant
+
 
 def gaussian_kernel_1d(sigma: float,
                        radius: int | None = None) -> torch.Tensor:
@@ -45,7 +47,9 @@ def gaussian_blur(img: torch.Tensor, sigma: float,
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """Half-resolution downsample with the cv2.pyrDown 5-tap binomial
     filter."""
-    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+    # Kept on the image's device: the step that builds the pyramid is
+    # captured (pipeline/vo.py).
+    k = constant([1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16], img.device)
     return _conv_sep(img, k, k)[::2, ::2]
 
 

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..core.linalg import constant
 from . import klt_pallas as v1
 
 WIN = 15  # tracking window (reference main.py:36 winSize)
@@ -189,8 +190,8 @@ def track_features_pallas2(
             f"klt_pallas2 window must be odd and in [5, 15]; got {win}. "
             "Use the 'xla' backend for larger windows.")
     H, W = prev_pyr[0].shape
-    lim = torch.tensor([W + 8.0, H + 8.0], dtype=torch.float32,
-                       device=pts.device)
+    # Kept on the device, not copied from the host: the step is captured.
+    lim = constant([W + 8.0, H + 8.0], pts.device)
 
     def sanitize(x):
         x = torch.nan_to_num(x, nan=64.0, posinf=64.0, neginf=64.0)

@@ -194,9 +194,10 @@ def solve_pnp_ransac(
     inl = (reprojection_errors(Ts, cam, X, uv) < reproj_threshold_px) & valid
     scores = torch.where(oks, inl.sum(-1), torch.full_like(oks, -1,
                                                            dtype=torch.int64))
-    best = torch.argmax(scores)  # first maximum, as jnp.argmax
-    T_best = Ts[best]
-    found = scores[best] >= max(min_points // 2, 4)
+    best = torch.argmax(scores).view(1)  # first maximum, as jnp.argmax
+    # index_select, not Ts[best]: a 0-d index is read on the host.
+    T_best = Ts.index_select(0, best)[0]
+    found = scores.index_select(0, best)[0] >= max(min_points // 2, 4)
 
     inl = (reprojection_errors(T_best, cam, X, uv) < reproj_threshold_px) & valid
     T_ref = refine_pose_gn(T_best, cam, X, uv, inl.to(torch.float32),

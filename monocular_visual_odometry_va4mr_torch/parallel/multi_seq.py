@@ -2,7 +2,12 @@
 ``parallel/multi_seq.py``).
 
 Each slot owns one sequence; every frame steps all slots in turn
-(``seq_dp.batched_step``), with zero collectives.
+(``seq_dp.batched_step``), with zero collectives.  Slots on one card share
+one ``VisualOdometry`` and so one captured step (``pipeline/vo.py``): each
+slot's state goes through the graph's static buffers, one copy of the
+packed state a step, where a graph per slot would multiply the memory
+pool (one step's intermediates, ~0.4 GB at 376x1241) and the captures by
+the number of slots.
 
 Random draws: sequence ``s`` of a run seeded ``seed`` draws exactly as a
 solo ``runner.run_sequence(seed=sequence_seed(seed, s))`` does: its

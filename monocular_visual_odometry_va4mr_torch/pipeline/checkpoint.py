@@ -54,8 +54,6 @@ def save(directory: str, state: FrameState, frame_index: int, *,
         v = getattr(state, f.name)
         if f.name == "prev_pyramid":
             tensors[f.name] = [p.detach().cpu() for p in v]
-        elif f.name == "frame_idx":
-            tensors[f.name] = torch.tensor(int(v), dtype=torch.int64)
         else:
             tensors[f.name] = v.detach().cpu()
     aux = {}
@@ -152,8 +150,6 @@ def restore(directory: str,
         if f.name == "prev_pyramid":
             shapes_a = [tuple(p.shape) for p in a]
             shapes_b = [tuple(p.shape) for p in b]
-        elif f.name == "frame_idx":
-            continue
         else:
             shapes_a, shapes_b = tuple(a.shape), tuple(b.shape)
             if a.dtype != b.dtype:

@@ -1,7 +1,7 @@
 """Host-side sequence driver (port of ``pipeline/runner.py``).
 
-Feeds frames to ``VisualOdometry.step`` one call per frame, collects poses
-and metrics on the host, re-bootstraps after tracking loss, and optionally
+Feeds frames to ``VisualOdometry.step`` one call per frame (on the card a
+replay of the captured step), collects poses and metrics on the host, re-bootstraps after tracking loss, and optionally
 refines with host-side windowed BA (``--ba-every``), collects pose-graph
 keyframes (``posegraph=True``) and checkpoints every K frames.
 

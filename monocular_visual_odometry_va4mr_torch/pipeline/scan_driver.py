@@ -1,11 +1,17 @@
 """Block-wise sequence processing (port of ``pipeline/scan_driver.py``).
 
 The reference compiles the step once and iterates it on the device with
-``lax.scan``.  The port has no scan: ``make_scan_step`` returns a callable
-that runs the step over a block of frames in a Python loop that launches
-without host syncs inside it (the activity mask and the BA cadence are host
-data), and stacks the per-frame outputs on the device.  Only the compact
-per-frame outputs come back to the host, once per block.
+``lax.scan``.  The port's counterpart: ``make_scan_step`` returns a callable
+that replays the captured step (``VisualOdometry.step``, a CUDA graph on
+the card) once per active frame of a block.  The host issues one graph
+launch and a few copies per frame (the draws, the image, the state and
+the frame's outputs) and reads nothing back inside the block: the activity
+mask and the BA cadence are host data.  A masked frame is not stepped; its
+outputs repeat the previous frame's.  Each frame's outputs (``frame_outputs``,
+with the landmark snapshot where ``emit_landmarks`` asks for it) are written
+by the graph into one preallocated device buffer for the block and come
+back to the host once per block.  On the CPU
+the same loop runs the step eagerly.
 
 ``run_streaming`` is the long-sequence path:
   * fixed-size blocks, the padded tail masked (inactive steps are identity),
@@ -30,7 +36,7 @@ import torch
 from ..core.state import STATUS_TRACKING, FrameState
 from .runner import (REBOOT_STREAM, frame_generator, map_scale_from_points,
                      median_step_len, reanchor_state)
-from .vo import VisualOdometry
+from .vo import VisualOdometry, frame_outputs
 
 
 class ScanOutputs(NamedTuple):
@@ -62,26 +68,28 @@ def make_scan_step(vo: VisualOdometry, *, emit_landmarks: bool = False,
     passes the state through unchanged (identity), so padded tail frames
     are no-ops and the returned state is the one after the last ACTIVE
     frame.  ``emit_landmarks``: the outputs carry the per-frame landmark
-    snapshot (``ScanOutputsLm``)."""
+    snapshot (``ScanOutputsLm``).  The outputs are views of the block's
+    device buffer."""
     out_t = ScanOutputsLm if emit_landmarks else ScanOutputs
+    packing = vo.outputs[emit_landmarks]
 
     def run(state: FrameState, images: torch.Tensor,
             generators: Sequence[torch.Generator],
             active: Optional[Sequence[bool]] = None):
         if masked == (active is None):
             raise ValueError("pass `active` exactly when masked=True")
-        outs = []
-        for i in range(images.shape[0]):
+        F = images.shape[0]
+        rows = torch.empty((F, packing.nbytes), dtype=torch.uint8,
+                           device=vo.device)
+        for i in range(F):
             if not masked or active[i]:
-                state = vo.step(state, images[i], generator=generators[i])
-            out = (state.T_CW, state.n_inliers, state.n_tracked,
-                   state.status)
-            if emit_landmarks:
-                z = state.lm_xyz @ state.T_CW[2, :3] + state.T_CW[2, 3]
-                out = out + (state.lm_uv, z,
-                             state.lm_valid & torch.isfinite(z) & (z > 0))
-            outs.append(out)
-        return state, out_t(*(torch.stack(col) for col in zip(*outs)))
+                state = vo.step(state, images[i], generator=generators[i],
+                                outputs=rows[i], landmarks=emit_landmarks)
+            elif i:
+                rows[i].copy_(rows[i - 1])
+            else:
+                packing.pack(rows[0], frame_outputs(state, emit_landmarks))
+        return state, out_t(*packing.views(rows))
 
     return run
 

@@ -7,6 +7,19 @@ intermediate=..., generator=...)`` and ``step(state, image, generator=...)``
 are driven from a Python loop, one call per frame (``pipeline/runner.py``,
 ``pipeline/scan_driver.py``).
 
+Execution, as in the reference (``self._step = jax.jit(self._step_impl)``):
+``_step_impl(state, image, draws, run_ba)`` is the step's body, run eagerly.
+On a CUDA device ``step`` replays it as a CUDA graph (``StepGraphs``),
+captured at first use: one graph for a frame without the in-step BA and
+one for a frame that runs it, per upload dtype of the image (uint8 or
+float32) and per outputs the caller asks for (none, the pose, the pose and
+the landmark snapshot), all in one memory pool, over static buffers that
+hold the state, the image and the RANSAC draws.  A replay is one launch from the host;
+the launches of the kernels it holds are added to their wrappers' counts.
+A capture or replay that fails raises: nothing falls back to eager
+stepping.  On the CPU ``step`` runs ``_step_impl``.  The bootstrap runs
+eagerly everywhere.
+
 Stage order inside a step: KLT (forward on the /4 then the full plane,
 backward check) -> PnP-RANSAC -> scale-locked landmark re-triangulation ->
 candidate promotion -> anchor maintenance -> corner replenishment -> in-step
@@ -23,16 +36,23 @@ Departures from the reference, by design:
   * RANSAC banks come from ``sampler(generator, valid, num_hypotheses,
     sample_size) -> (idx, ok)``; the default draws them with the
     ``torch.Generator`` given to the call (the reference takes a key per
-    call).  Tests inject the reference's own draws.
-  * The in-step BA trigger is a cadence known on the host (``frame_idx`` is
-    a Python int): the branch runs when ``new_frame >= window`` and
-    ``new_frame % every == 0``, and its result is selected on the device
-    with ``torch.where(pnp_ok, ...)``, which is what the reference's
-    ``lax.cond`` skip branch returns when PnP fails.  No host sync.
+    call).  The step's bank is drawn before the step, outside the graph:
+    a sampler with a ``draw(generator, num_hypotheses, sample_size)``
+    method (the default's is ``ransac.draw_uniforms``) gives uniforms that
+    the step maps onto the valid rows (``ransac.select_minimal_sets``).  A
+    sampler without one (tests inject the reference's own draws) is handed
+    the generator inside ``_step_impl`` and runs only eagerly.
+  * The in-step BA trigger is a cadence the host knows (``state.host_frame``,
+    carried beside the device ``frame_idx``): the branch runs when
+    ``new_frame >= window`` and ``new_frame % every == 0``, and its result is
+    selected on the device with ``torch.where(pnp_ok, ...)``, which is what
+    the reference's ``lax.cond`` skip branch returns when PnP fails.  The
+    ring slot is ``new_frame % window`` on the device.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -41,7 +61,8 @@ from ..core.camera import Camera
 from ..core.config import PipelineConfig
 from ..core.slots import (alloc_slots, scatter_add_rows, scatter_rows,
                           stable_top_k)
-from ..core.state import STATUS_LOST, STATUS_TRACKING, FrameState, init_state
+from ..core.state import (STATUS_LOST, STATUS_TRACKING, FrameState, Packing,
+                          init_state)
 from ..backend import ba as ba_mod
 from ..ops import (corners, essential, image as imops, klt, klt_pallas,
                    klt_pallas2, match, pnp, ransac, sift, triangulate)
@@ -98,9 +119,24 @@ class VisualOdometry:
                 "the legacy 'pallas' backend is fixed at window 15; use "
                 "'pallas2' (5..15) or 'xla'.")
         self.sampler = sampler or ransac.sample_minimal_sets
+        # Draws the step's bank outside the step, or None: the sampler then
+        # takes the generator inside ``_step_impl``.
+        self._draw = getattr(self.sampler, "draw", None)
         self.seed = seed
         self.generator = None  # made at first use, on self.device
         self.ba_runs = 0  # in-step BA branches run (host-known cadence)
+        self.graphs = None  # the captured step (StepGraphs), at first use
+        # How ``step`` packs a frame's outputs (``frame_outputs``), without
+        # and with the landmark snapshot.
+        K = config.capacity.max_landmarks
+        specs = (((4, 4), torch.float32), ((), torch.int32),
+                 ((), torch.int32), ((), torch.int32),
+                 ((K, 2), torch.float32), ((K,), torch.float32),
+                 ((K,), torch.bool))
+        self.outputs = {lm: Packing([torch.empty(shape, dtype=dt,
+                                                 device="meta")
+                                     for shape, dt in specs[:7 if lm else 4]])
+                        for lm in (False, True)}
 
     # ------------------------------------------------------------------
     def make_pyramid(self, image: torch.Tensor):
@@ -126,7 +162,9 @@ class VisualOdometry:
         return self.generator
 
     def _as_image(self, img) -> torch.Tensor:
-        return torch.as_tensor(img).to(self.device, torch.float32)
+        if not torch.is_tensor(img):
+            img = torch.as_tensor(img)
+        return img.to(self.device, torch.float32)
 
     def _detect(self, image: torch.Tensor):
         det = self.config.detector
@@ -220,8 +258,8 @@ class VisualOdometry:
 
         state = init_state(cfg, pyr1, dev)
         ok = ess_ok & (promote.sum() >= cfg.landmarks.min_bootstrap_landmarks)
-        return state.replace(
-            frame_idx=1,
+        state = state.replace(
+            frame_idx=torch.ones((), dtype=torch.int32, device=dev),
             T_CW=T_CW,
             lm_gen=scatter_add_rows(state.lm_gen, lm_slots, lm_acc),
             lm_xyz=scatter_rows(torch.zeros((K, 3), device=dev), lm_slots, X),
@@ -238,6 +276,8 @@ class VisualOdometry:
             n_inliers=inliers.sum().to(torch.int32),
             n_tracked=pair_valid.sum().to(torch.int32),
         )
+        state.host_frame = 1
+        return state
 
     def bootstrap(self, img0, img1, intermediate=(),
                   generator: Optional[torch.Generator] = None) -> FrameState:
@@ -285,9 +325,55 @@ class VisualOdometry:
 
     # ------------------------------------------------------------------
     def step(self, state: FrameState, image,
-             generator: Optional[torch.Generator] = None) -> FrameState:
-        """One frame of continuous operation.  ``generator`` draws the
-        RANSAC bank (one seeded from ``seed`` if None)."""
+             generator: Optional[torch.Generator] = None, *,
+             outputs: Optional[torch.Tensor] = None,
+             landmarks: bool = False) -> FrameState:
+        """One frame of continuous operation: a replay of the captured step
+        on a CUDA device, ``_step_impl`` on the CPU.  ``generator`` draws the
+        RANSAC bank (one seeded from ``seed`` if None).  ``outputs``: a
+        uint8 tensor of ``self.outputs[landmarks].nbytes`` bytes on the
+        device, which gets the new state's ``frame_outputs`` packed, with
+        the landmark snapshot if ``landmarks``."""
+        run_ba = self.ba_due(state)
+        draws = self.step_draws(generator)
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                self.graphs = StepGraphs(self)
+            new = self.graphs.step(state, image, draws, run_ba, outputs,
+                                   landmarks)
+        else:
+            new = self._step_impl(state, image, draws, run_ba)
+            if outputs is not None:
+                self.outputs[landmarks].pack(outputs,
+                                             frame_outputs(new, landmarks))
+        new.host_frame = state.host_frame_idx() + 1
+        if run_ba:
+            self.ba_runs += 1
+        return new
+
+    def ba_due(self, state: FrameState) -> bool:
+        """Whether the step after ``state`` runs the in-step BA: a full ring
+        and the trigger cadence, decided from ``state.host_frame``."""
+        ba = self.config.ba
+        if not ba.every:
+            return False
+        new_frame = state.host_frame_idx() + 1
+        return new_frame >= ba.window and new_frame % ba.every == 0
+
+    def step_draws(self, generator: Optional[torch.Generator] = None):
+        """The step's RANSAC draws from ``generator`` (the VO's own if
+        None): (pnp.iterations, 3) float32 uniforms, or the generator itself
+        for a sampler without ``draw``."""
+        gen = self._generator(generator)
+        if self._draw is None:
+            return gen
+        return self._draw(gen, self.config.pnp.iterations, 3)
+
+    def _step_impl(self, state: FrameState, image, draws,
+                   run_ba: bool) -> FrameState:
+        """The step's body: ``image`` (H, W) of any dtype, ``draws`` from
+        ``step_draws``, ``run_ba`` from ``ba_due``.  Nothing in it reads a
+        device value on the host, so it can be captured."""
         cfg = self.config
         K = cfg.capacity.max_landmarks
         dev = self.device
@@ -303,8 +389,10 @@ class VisualOdometry:
         cand_uv, cand_valid = new_pts[K:], tracked[K:]
 
         # (2) PnP-RANSAC; hold the pose and report LOST on failure.
-        idx, hyp_ok = self.sampler(self._generator(generator), lm_valid,
-                                   cfg.pnp.iterations, 3)
+        if self._draw is not None:
+            idx, hyp_ok = ransac.select_minimal_sets(draws.to(dev), lm_valid)
+        else:
+            idx, hyp_ok = self.sampler(draws, lm_valid, cfg.pnp.iterations, 3)
         T_CW, pnp_inliers, pnp_ok = pnp.solve_pnp_ransac(
             self.cam, state.lm_xyz, lm_uv, lm_valid, idx, hyp_ok,
             reproj_threshold_px=cfg.pnp.reproj_err_px,
@@ -378,7 +466,7 @@ class VisualOdometry:
         # (4) Corner replenishment with min-dist dedup.
         det_uv, _, det_valid = self._detect(image)
         min_d2 = cfg.detector.min_dist ** 2
-        inf = torch.tensor(float("inf"), device=dev)
+        inf = torch.full((), float("inf"), device=dev)
         d2_cand = torch.sum((det_uv[:, None, :] - cand_uv[None]) ** 2, -1)
         d2_lm = torch.sum((det_uv[:, None, :] - lm_uv[None]) ** 2, -1)
         far_from_cand = torch.all(
@@ -394,8 +482,7 @@ class VisualOdometry:
                                        T_CW.expand(n_det, 4, 4))
         cand_first_frame = scatter_rows(
             state.cand_first_frame, c_slots,
-            torch.full((n_det,), state.frame_idx + 1, dtype=torch.int32,
-                       device=dev))
+            (state.frame_idx + 1).expand(n_det))
         cand_valid = scatter_rows(cand_valid, c_slots, c_acc)
 
         n_inl = (pnp_inliers & lm_valid).sum().to(torch.int32)
@@ -409,17 +496,18 @@ class VisualOdometry:
         new_frame = state.frame_idx + 1
         if cfg.ba.every:
             Wb = cfg.ba.window
-            slot = new_frame % Wb
-            ba_T, ba_uv = ba_T.clone(), ba_uv.clone()
-            ba_mask, ba_gen = ba_mask.clone(), ba_gen.clone()
-            ba_T[slot] = T_CW
-            ba_uv[slot] = lm_uv
-            ba_mask[slot] = lm_valid_new
-            ba_gen[slot] = lm_gen
+            # The ring slot on the device: a select over the slots, not a
+            # write at a host index.
+            slot = torch.remainder(new_frame, Wb)
+            hit = torch.arange(Wb, device=dev) == slot
+            ba_T = torch.where(hit[:, None, None], T_CW, ba_T)
+            ba_uv = torch.where(hit[:, None, None], lm_uv, ba_uv)
+            ba_mask = torch.where(hit[:, None], lm_valid_new, ba_mask)
+            ba_gen = torch.where(hit[:, None], lm_gen, ba_gen)
             # Only with a FULL ring (otherwise the frozen gauge rows would be
-            # unfilled identity poses) and on the trigger cadence.
-            if new_frame >= Wb and new_frame % cfg.ba.every == 0:
-                self.ba_runs += 1
+            # unfilled identity poses) and on the trigger cadence: the host
+            # decides (``ba_due``).
+            if run_ba:
                 ba_T_out, lm_out, T_ba = self._run_ba_branch(
                     ba_T, ba_uv, ba_mask, ba_gen, lm_xyz, lm_gen,
                     lm_valid_new, slot)
@@ -460,8 +548,8 @@ class VisualOdometry:
         pose)."""
         cfg = self.config.ba
         Wb = cfg.window
-        order = torch.tensor([(slot + 1 + i) % Wb for i in range(Wb)],
-                             device=self.device)
+        order = torch.remainder(slot + 1 + torch.arange(Wb, device=self.device),
+                                Wb)
         Tw = ba_T[order]
         uvw = ba_uv[order]
         mw = ba_mask[order] & (ba_gen[order] == lm_gen[None, :])
@@ -501,3 +589,159 @@ class VisualOdometry:
         good = torch.isfinite(rms_post) & (rms_post <= rms_pre)
         return ba_mod.BAWindow(*(torch.where(good, a, b)
                                  for a, b in zip(out, win)))
+
+
+def frame_outputs(state: FrameState, landmarks: bool = False):
+    """What the block driver keeps of a frame: T_CW, n_inliers, n_tracked,
+    status, and if ``landmarks`` the landmark snapshot (pixel position,
+    camera-frame depth, and validity with a finite positive depth)."""
+    out = (state.T_CW, state.n_inliers, state.n_tracked, state.status)
+    if not landmarks:
+        return out
+    z = state.lm_xyz @ state.T_CW[2, :3] + state.T_CW[2, 3]
+    return out + (state.lm_uv, z,
+                  state.lm_valid & torch.isfinite(z) & (z > 0))
+
+
+# The kernel wrappers whose launch counts a replay adds to.
+_COUNTED = (klt_pallas2.klt_lk, klt_pallas.klt_v1)
+
+
+def _launch_counts() -> Tuple[int, ...]:
+    return tuple(fn.launches for fn in _COUNTED)
+
+
+def _set_launch_counts(counts: Tuple[int, ...]) -> None:
+    for fn, n in zip(_COUNTED, counts):
+        fn.launches = n
+
+
+class StepGraphs:
+    """``VisualOdometry._step_impl`` captured as CUDA graphs over static
+    buffers: the counterpart of the reference's ``jax.jit(_step_impl)``.
+
+    The buffers: the state (every tensor of a ``FrameState`` packed in one
+    uint8 buffer, ``Packing``), one image buffer per upload dtype (uint8,
+    float32), the RANSAC draws, and the frame's outputs (``frame_outputs``,
+    packed as ``vo.outputs``) for callers that ask for them.  A graph reads
+    the state, the image and the draws and writes the next state back over
+    the state buffer (and the outputs into theirs).  One graph per (upload
+    dtype, in-step BA or not, tracker, outputs: none, without or with the
+    landmark snapshot), captured at first use after one warm-up run on a
+    side stream (it builds and loads the kernels and the library handles,
+    and makes the step's constant tensors, ``core.linalg.constant``); all
+    share one memory pool.  Capturing records how many launches of each
+    counted kernel the graph holds; each replay adds them to the wrapper's
+    count, and the warm-up and the capture add nothing.
+
+    ``step`` copies the state in (one copy for a state a replay returned, a
+    copy per tensor otherwise), replays, and returns the new state as views
+    of one copy of the state buffer, so a later replay leaves it as it is.
+    Every failure raises."""
+
+    def __init__(self, vo: "VisualOdometry"):
+        self.vo = vo
+        self.pool = torch.cuda.graph_pool_handle()
+        self.packing: Optional[Packing] = None
+        self.state_buf = None
+        self.static: Optional[FrameState] = None
+        self.images: Dict[torch.dtype, torch.Tensor] = {}
+        self.draws = None
+        self.out_bufs = {lm: torch.empty(p.nbytes, dtype=torch.uint8,
+                                         device=vo.device)
+                         for lm, p in vo.outputs.items()}
+        self.graphs: Dict[tuple, tuple] = {}  # key -> (graph, launches held)
+        self.capture_s: Dict[tuple, float] = {}  # warm-up included
+        self.replays = 0
+
+    def step(self, state: FrameState, image, draws, run_ba: bool,
+             outputs: Optional[torch.Tensor],
+             landmarks: bool) -> FrameState:
+        vo = self.vo
+        dev = vo.device
+        self._load_state(state)
+        img = torch.as_tensor(image)
+        dtype = torch.uint8 if img.dtype == torch.uint8 else torch.float32
+        if dtype not in self.images:
+            self.images[dtype] = torch.empty(tuple(img.shape), dtype=dtype,
+                                             device=dev)
+        img_buf = self.images[dtype]
+        if img.shape != img_buf.shape:
+            raise ValueError(f"image of shape {tuple(img.shape)}; the step "
+                             f"was captured at {tuple(img_buf.shape)}")
+        img_buf.copy_(img)
+        if not torch.is_tensor(draws):
+            raise TypeError("the captured step takes its RANSAC draws as a "
+                            "tensor: a sampler without draw() runs only "
+                            "through _step_impl")
+        if self.draws is None:
+            self.draws = torch.empty(tuple(draws.shape), dtype=draws.dtype,
+                                     device=dev)
+        if draws.shape != self.draws.shape or draws.dtype != self.draws.dtype:
+            raise ValueError(f"draws {draws.dtype} {tuple(draws.shape)}; the "
+                             f"step was captured with {self.draws.dtype} "
+                             f"{tuple(self.draws.shape)}")
+        self.draws.copy_(draws)
+
+        out = None if outputs is None else landmarks
+        key = (dtype, run_ba, vo.klt_backend, out)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(key, img_buf, run_ba, out)
+        graph, held = self.graphs[key]
+        graph.replay()
+        _set_launch_counts(tuple(c + h for c, h
+                                 in zip(_launch_counts(), held)))
+        self.replays += 1
+        snap = self.state_buf.clone()
+        new = self.static.with_tensors(self.packing.views(snap))
+        new._step_buf = (self.packing.specs, snap)
+        if outputs is not None:
+            outputs.copy_(self.out_bufs[landmarks])
+        return new
+
+    def _load_state(self, state: FrameState) -> None:
+        tensors = state.tensors()
+        if self.packing is None:
+            self.packing = Packing(tensors)
+            self.state_buf = torch.empty(self.packing.nbytes,
+                                         dtype=torch.uint8,
+                                         device=self.vo.device)
+            self.static = state.with_tensors(
+                self.packing.views(self.state_buf))
+        specs, buf = getattr(state, "_step_buf", (None, None))
+        if specs == self.packing.specs and buf.device == self.state_buf.device:
+            self.state_buf.copy_(buf)
+        else:
+            self.packing.pack(self.state_buf, tensors)
+
+    def _capture(self, key, img_buf: torch.Tensor, run_ba: bool,
+                 out: Optional[bool]):
+        vo = self.vo
+        t0 = time.perf_counter()
+        counts = _launch_counts()
+        main = torch.cuda.current_stream(vo.device)
+        side = torch.cuda.Stream(device=vo.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            # Warm-up: its result is dropped, the buffers keep the input.
+            vo._step_impl(self.static, img_buf, self.draws, run_ba)
+        main.wait_stream(side)
+        warmed = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            new = vo._step_impl(self.static, img_buf, self.draws, run_ba)
+            # Through a scratch buffer: the new state may share tensors with
+            # the one it was made from.
+            scratch = torch.empty_like(self.state_buf)
+            self.packing.pack(scratch, new.tensors())
+            if out is not None:
+                vo.outputs[out].pack(self.out_bufs[out],
+                                     frame_outputs(new, out))
+            self.state_buf.copy_(scratch)
+            del new, scratch
+        held = tuple(a - b for a, b in zip(_launch_counts(), warmed))
+        _set_launch_counts(counts)
+        torch.cuda.synchronize(vo.device)
+        self.capture_s[key] = time.perf_counter() - t0
+        return graph, held

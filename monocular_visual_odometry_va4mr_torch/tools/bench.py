@@ -83,6 +83,7 @@ def bench_seed(scene, frames, vo, seed, device_name):
         "step_ms": r["step_ms"], "bootstrap_ms": r["bootstrap_ms"],
         "device_ms_per_step": r["device_ms_per_step"],
         "launches_per_step": r["launches_per_step"],
+        "dispatches_per_step": r["dispatches_per_step"],
         "klt_lk_per_step": r["klt_lk_per_step"],
         "klt_lk_launches": r["klt_lk_launches"],
         "klt_lk_launches_expected": r["klt_lk_launches_expected"],
@@ -105,6 +106,7 @@ def summary(runs):
         step_ms=med("step_ms"), bootstrap_ms=med("bootstrap_ms"),
         device_ms_per_step=med("device_ms_per_step"),
         launches_per_step=med("launches_per_step"),
+        dispatches_per_step=med("dispatches_per_step"),
         klt_lk_per_step=med("klt_lk_per_step"),
         klt_lk_launches=sum(r["klt_lk_launches"] for r in runs),
         klt_lk_launches_expected=sum(r["klt_lk_launches_expected"]

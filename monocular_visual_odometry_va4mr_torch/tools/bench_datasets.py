@@ -103,6 +103,7 @@ def run_case(name, scene, frames, vo, device_name, seed=0):
         "step_ms": r["step_ms"], "bootstrap_ms": r["bootstrap_ms"],
         "device_ms_per_step": r["device_ms_per_step"],
         "launches_per_step": r["launches_per_step"],
+        "dispatches_per_step": r["dispatches_per_step"],
         "klt_lk_per_step": r["klt_lk_per_step"],
         "klt_lk_launches": r["klt_lk_launches"],
         "klt_lk_launches_expected": r["klt_lk_launches_expected"],

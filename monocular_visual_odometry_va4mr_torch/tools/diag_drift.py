@@ -60,7 +60,7 @@ def frame_row(vo, scene, i, prev, state, s, prev_pos):
     est_pos = -T_CW[:3, :3].T @ T_CW[:3, 3] * s
     gt_pos = scene.poses_WC[i][:3, 3]
     pv = n(prev.cand_valid)
-    age_p = prev.frame_idx + 1 - n(prev.cand_first_frame)
+    age_p = prev.host_frame_idx() + 1 - n(prev.cand_first_frame)
     ang = n(tri.bearing_angle_deg(vo.cam, prev.cand_first_uv, state.cand_uv,
                                   prev.cand_T_CW_first[:, :3, :3],
                                   state.T_CW[:3, :3]))

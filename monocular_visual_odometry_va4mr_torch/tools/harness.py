@@ -145,9 +145,9 @@ class CallCounts:
         step, boot = vo.step, vo.bootstrap
         sift = vo.config.bootstrap_method == "sift"
 
-        def counted_step(state, image, generator=None):
+        def counted_step(state, image, generator=None, **kw):
             self.steps += 1
-            return step(state, image, generator=generator)
+            return step(state, image, generator=generator, **kw)
 
         def counted_bootstrap(img0, img1, intermediate=(), generator=None):
             self.bootstraps += 1
@@ -254,23 +254,41 @@ def _on_device(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+# Runtime and driver calls that put work on the card's queue: a kernel, a
+# graph (one call for all of its kernels), a copy or a fill.
+_DISPATCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                      "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                      "cuMemset")
+
+
+def _host_dispatches(prof):
+    """The host's dispatches of a finished ``torch.profiler`` window: the
+    runtime calls (``_DISPATCH_PREFIXES``) it traced on the host.  Under a
+    graph replay the device events stay and the dispatches collapse into
+    one ``cudaGraphLaunch``."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith(_DISPATCH_PREFIXES)]
+
+
 def device_profile(prof, steps, kernel):
     """Device time per step from a finished ``torch.profiler`` window: all
     device events together and the kernels whose name holds ``kernel``
-    (ms, calls)."""
+    (ms, calls), and the host's dispatches per step."""
     dev = _on_device(prof)
     total_us = sum(e.time_range.elapsed_us() for e in dev)
     mine = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
     kernel_us, calls = sum(mine), len(mine)
     return dict(steps=steps, device_ms_per_step=total_us / 1e3 / steps,
                 launches_per_step=len(dev) / steps,
+                dispatches_per_step=len(_host_dispatches(prof)) / steps,
                 kernel=kernel, kernel_ms_per_step=kernel_us / 1e3 / steps,
                 kernel_calls_per_step=calls / steps,
                 kernel_ms_per_call=kernel_us / 1e3 / calls if calls else None,
                 device_time_seen=total_us > 0)
 
 
-def _device_events(fn, reps):
+def _profiled(fn, reps):
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -279,28 +297,33 @@ def _device_events(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _on_device(prof)
+    return prof
 
 
 def profile_calls(fn, reps=3):
-    """Device ms and device events (kernels, copies, fills: "launches") per
-    call of ``fn`` from ``torch.profiler``."""
-    dev = _device_events(fn, reps)
+    """Device ms, device events (kernels, copies, fills: "launches") and
+    host dispatches (``_host_dispatches``) per call of ``fn`` from
+    ``torch.profiler``."""
+    prof = _profiled(fn, reps)
+    dev = _on_device(prof)
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
-            len(dev) / reps)
+            len(dev) / reps, len(_host_dispatches(prof)) / reps)
 
 
 def profile_steps(fn, steps, device, kernel="klt_lk_kernel"):
-    """Device ms, launches and ``kernel`` launches per step of ``fn``, one
-    call of which runs ``steps`` steps; all ``None`` off the card."""
+    """Device ms, launches (device events), host dispatches and ``kernel``
+    launches per step of ``fn``, one call of which runs ``steps`` steps;
+    all ``None`` off the card."""
     if torch.device(device).type != "cuda":
         return dict(device_ms_per_step=None, launches_per_step=None,
-                    klt_lk_per_step=None)
-    dev = _device_events(fn, 1)
+                    dispatches_per_step=None, klt_lk_per_step=None)
+    prof = _profiled(fn, 1)
+    dev = _on_device(prof)
     return dict(
         device_ms_per_step=sum(e.time_range.elapsed_us() for e in dev)
         / 1e3 / steps,
         launches_per_step=len(dev) / steps,
+        dispatches_per_step=len(_host_dispatches(prof)) / steps,
         klt_lk_per_step=sum(1 for e in dev if kernel in e.name) / steps)
 
 

@@ -67,13 +67,14 @@ def tile_window(win, reps):
 
 
 def row(name, fn, device, **extra):
-    """One row: host ms, and device ms and launches per call on the card."""
+    """One row: host ms, and device ms, launches (device events) and host
+    dispatches per call on the card."""
     ms = harness.host_ms(fn, device)
-    dev_ms = launches = None
+    dev_ms = launches = dispatches = None
     if torch.device(device).type == "cuda":
-        dev_ms, launches = harness.profile_calls(fn)
+        dev_ms, launches, dispatches = harness.profile_calls(fn)
     return dict(case=name, ms=ms, device_ms=dev_ms, launches=launches,
-                **extra)
+                dispatches=dispatches, **extra)
 
 
 def profile(device):

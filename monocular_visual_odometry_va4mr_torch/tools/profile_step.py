@@ -8,10 +8,14 @@ scene, seed 11, at the preset's geometry; the stepped frame is frame 10):
 (forward chain), ``klt/total+fb`` (with the backward check), ``pnp_ransac``
 (the RANSAC bank draw and the solve, as the JAX stage draws inside its
 solve), ``triangulate`` (candidates), ``lm_retriangulate``,
-``detect_corners``, ``dedup_matrix`` and ``FULL STEP``.  Per stage: ``ms``,
-the median host time of 20 calls with a device sync around each, and from
+``detect_corners``, ``dedup_matrix`` and ``FULL STEP`` (``step``: on the
+card a replay of the captured step).  Per stage: ``ms``, the median host
+time of 20 calls with a device sync around each, and from
 ``torch.profiler`` over 3 calls ``launches`` (device events: kernels,
-copies, fills) and ``device_ms`` per call (``null`` on the CPU).
+copies, fills), ``dispatches`` (the host's runtime calls that queue work,
+one ``cudaGraphLaunch`` for a replay) and ``device_ms`` per call (``null``
+on the CPU).  The ``FULL STEP`` row also carries the same four numbers of
+the step's body run op by op (``_step_impl``) under ``eager_*``.
 ``--scan`` also times ``scan_driver.run_streaming`` over frames 10.. in one
 block.
 
@@ -130,16 +134,26 @@ def stages(vo, state, img):
     ]
 
 
+def measure(fn, device):
+    """Host ms, launches, dispatches and device ms per call of ``fn``."""
+    ms = harness.host_ms(fn, device, reps=REPS, warmup=WARMUP)
+    dev_ms = launches = dispatches = None
+    if device.type == "cuda":
+        dev_ms, launches, dispatches = harness.profile_calls(fn, PROFILE_REPS)
+    return dict(ms=ms, launches=launches, dispatches=dispatches,
+                device_ms=dev_ms)
+
+
 def profile(vo, state, img):
-    """One row per stage: name, host ms, launches and device ms per call."""
-    rows = []
-    for name, fn in stages(vo, state, img):
-        ms = harness.host_ms(fn, vo.device, reps=REPS, warmup=WARMUP)
-        dev_ms = launches = None
-        if vo.device.type == "cuda":
-            dev_ms, launches = harness.profile_calls(fn, PROFILE_REPS)
-        rows.append(dict(stage=name, ms=ms, launches=launches,
-                         device_ms=dev_ms))
+    """One row per stage: name, host ms, launches, dispatches and device ms
+    per call; the ``FULL STEP`` row also the eager body's."""
+    rows = [dict(stage=name, **measure(fn, vo.device))
+            for name, fn in stages(vo, state, img)]
+    gen = torch.Generator(device=vo.device)
+    run_ba = vo.ba_due(state)
+    eager = measure(lambda: vo._step_impl(
+        state, img, vo.step_draws(gen.manual_seed(0)), run_ba), vo.device)
+    rows[-1].update({f"eager_{k}": v for k, v in eager.items()})
     step_ms = rows[-1]["ms"]
     for r in rows:
         r["pct_of_step"] = 100.0 * r["ms"] / step_ms
@@ -200,14 +214,22 @@ def print_table(head, rows, extra=()):
     print(f"{head['dataset']} {head['resolution']} {head['tracker']} on "
           f"{head['device']}")
     print(f"\n{'stage':24s} {'ms':>8s}  {'% of step':>9s} {'launches':>9s} "
-          f"{'device ms':>9s}")
+          f"{'dispatches':>10s} {'device ms':>9s}")
     for r in rows:
         launches = "-" if r["launches"] is None else f"{r['launches']:.0f}"
+        disp = "-" if r["dispatches"] is None else f"{r['dispatches']:.0f}"
         dev_ms = "-" if r["device_ms"] is None else f"{r['device_ms']:.3f}"
         print(f"{r['stage']:24s} {r['ms']:8.3f}  {r['pct_of_step']:8.1f}% "
-              f"{launches:>9s} {dev_ms:>9s}")
+              f"{launches:>9s} {disp:>10s} {dev_ms:>9s}")
     total = sum(r["ms"] for r in rows[:-1])
     print(f"{'sum of stages':24s} {total:8.3f}")
+    last = rows[-1]
+    if "eager_ms" in last:
+        fmt = lambda v, f: "-" if v is None else format(v, f)  # noqa: E731
+        print(f"{'eager body (_step_impl)':24s} {last['eager_ms']:8.3f}  "
+              f"{'':9s} {fmt(last['eager_launches'], '.0f'):>9s} "
+              f"{fmt(last['eager_dispatches'], '.0f'):>10s} "
+              f"{fmt(last['eager_device_ms'], '.3f'):>9s}")
     for r in extra:
         print(f"\nscan driver: {r['frames']} frames in {r['ms']:.1f} ms -> "
               f"{r['ms_per_frame']:.3f} ms/frame ({r['fps']:.1f} fps)")

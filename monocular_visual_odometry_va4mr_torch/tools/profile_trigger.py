@@ -14,8 +14,8 @@ steps 5..13.  Then, on frame 14's image:
 * ``scan_ba_off`` and ``step_ba_off``: the same with in-step BA off.
 
 Each row: host ms (median of 20 synced calls; the scans one timed pass),
-device ms and launches per call or frame from ``torch.profiler`` (``null``
-on the CPU), and for the steps the BA branches run per call, which must
+device ms, launches (device events) and host dispatches per call or frame
+from ``torch.profiler`` (``null`` on the CPU), and for the steps the BA branches run per call, which must
 be 1 at the trigger and 0 elsewhere.  One JSON line per row.
 
     python -m monocular_visual_odometry_va4mr_torch.tools.profile_trigger
@@ -69,6 +69,15 @@ def build(cfg_mut, device):
     return vo, state, up
 
 
+def at_frame(state, frame):
+    """``state`` with its frame counter set to ``frame``, on the device and
+    on the host."""
+    out = state.replace(frame_idx=torch.full(
+        (), frame, dtype=torch.int32, device=state.frame_idx.device))
+    out.host_frame = frame
+    return out
+
+
 def step_row(name, vo, state, img):
     """The step on ``state`` and ``img``: host ms, device ms, launches and
     BA branches per call."""
@@ -82,11 +91,11 @@ def step_row(name, vo, state, img):
     fn()
     ba_runs = vo.ba_runs - runs0
     ms = harness.host_ms(fn, dev)
-    dev_ms = launches = None
+    dev_ms = launches = dispatches = None
     if dev.type == "cuda":
-        dev_ms, launches = harness.profile_calls(fn)
-    return dict(case=name, frame=int(state.frame_idx) + 1, ms=ms,
-                device_ms=dev_ms, launches=launches,
+        dev_ms, launches, dispatches = harness.profile_calls(fn)
+    return dict(case=name, frame=state.host_frame_idx() + 1, ms=ms,
+                device_ms=dev_ms, launches=launches, dispatches=dispatches,
                 ba_runs_per_call=ba_runs)
 
 
@@ -113,14 +122,15 @@ def scan_row(name, vo, state, imgs):
     prof = harness.profile_steps(fn, n, dev)
     return dict(case=name, frames=n, ms_per_frame=1e3 * dt / n,
                 fps=n / dt, device_ms_per_frame=prof["device_ms_per_step"],
-                launches_per_frame=prof["launches_per_step"])
+                launches_per_frame=prof["launches_per_step"],
+                dispatches_per_frame=prof["dispatches_per_step"])
 
 
 def profile(device):
     vo, state, up = build(ba_on, device)
     img = up[14]
-    rows = [step_row("step_trigger", vo, state.replace(frame_idx=15), img),
-            step_row("step_skip", vo, state.replace(frame_idx=16), img)]
+    rows = [step_row("step_trigger", vo, at_frame(state, 15), img),
+            step_row("step_skip", vo, at_frame(state, 16), img)]
     imgs = torch.stack(up[14:])
     rows.append(scan_row("scan_ba_on", vo, state, imgs))
     vo0, state0, _ = build(lambda c: c, device)

@@ -605,3 +605,153 @@ def test_traj_ba_on_nccl_equals_segment_ba(cuda, nccl_group):
     assert multihost.COMM == {("all_reduce", 4): 4}  # one rank: no halo
     ref, _ = ba.run_ba(win, cam, iters=4, damping=1e-2, n_fixed=2)
     assert (seg.T_CW - ref.T_CW[2:]).abs().max() <= 2e-4
+
+
+# --- the captured step -------------------------------------------------------
+
+GRAPH_FRAMES = 30  # 27 steps: the ring of 3 wraps 9 times, BA every 2
+
+
+def describe(a, b):
+    """Where two tensors of one shape differ: positions, how many of them
+    are NaN on both sides, and a few of the values."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return f"{a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}"
+    x, y = (a.view(torch.int32), b.view(torch.int32)) if (
+        a.dtype == torch.float32) else (a, b)
+    ne = (x != y).reshape(-1)
+    both_nan = (torch.isnan(a) & torch.isnan(b)).reshape(-1) if (
+        a.is_floating_point()) else torch.zeros_like(ne)
+    at = ne.nonzero().flatten()[:4].tolist()
+    return (f"{int(ne.sum())} differ, {int((ne & both_nan).sum())} NaN on both "
+            f"sides, at {at}: {a.reshape(-1)[at].tolist()} vs "
+            f"{b.reshape(-1)[at].tolist()}")
+
+
+def same_bits(a, b):
+    """Bit for bit, NaNs included (``torch.equal`` counts a NaN unequal to
+    itself, and the tracked positions of invalid slots may be NaN)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def graph_vo(cuda, **kw):
+    """``tests/test_pipeline.py``'s small config on ``pallas2`` with the
+    in-step BA over a ring of 3 every 2 frames, on the card."""
+    from monocular_visual_odometry_va4mr_torch.core import config as tconfig
+    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+    from monocular_visual_odometry_va4mr_torch.dataio import synthetic
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    scene = synthetic.make_corridor_scene(seed=3, num_frames=GRAPH_FRAMES,
+                                          num_points=2500,
+                                          image_shape=(240, 320), step=0.4)
+    frames = [synthetic.render_frame(scene, i) for i in range(GRAPH_FRAMES)]
+    cfg = tconfig.PipelineConfig(
+        landmarks=tconfig.LandmarkConfig(min_dist=0.5, max_dist=120.0,
+                                         min_baseline_angle_deg=1.0,
+                                         min_baseline_frames=2),
+        detector=tconfig.DetectorConfig(max_corners=512, quality_level=0.05,
+                                        min_dist=8.0),
+        klt=tconfig.KLTConfig(window=11, max_level=3, num_iters=15, eps=0.01,
+                              backend="pallas2"),
+        pnp=tconfig.PnPConfig(iterations=200, reproj_err_px=4.0),
+        essential=tconfig.EssentialConfig(iterations=300, threshold_px=1.0),
+        capacity=tconfig.CapacityConfig(max_landmarks=512,
+                                        max_candidates=512),
+        ba=tconfig.InStepBAConfig(every=2, window=3, max_landmarks=64),
+        image_shape=(240, 320), bootstrap_method="klt")
+    make = lambda: VisualOdometry(Camera.from_matrix(scene.K), cfg, cuda,  # noqa: E731
+                                  seed=0, **kw)
+    return make, frames
+
+
+def test_graph_step_equals_the_eager_body_bit_for_bit(cuda):
+    """The replayed step against ``_step_impl`` op by op, from the same
+    bootstrap with the same draws, over 27 steps (the ring wraps, the BA
+    runs 13 times): every state tensor equal at every step, and the
+    replays add 3 ``klt_lk`` launches each, the capture none of its own."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo_g, vo_e = make(), make()
+    gen = lambda i: runner.frame_generator(0, i, cuda)  # noqa: E731
+    s_g = vo_g.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                         generator=gen(0))
+    s_e = vo_e.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                         generator=gen(0))
+    per_step, triggers = [], 0
+    for i in range(3, GRAPH_FRAMES):
+        triggers += vo_e.ba_due(s_e)
+        before = tk2.klt_lk.launches, tv1.klt_v1.launches
+        s_g = vo_g.step(s_g, frames[i], generator=gen(i))
+        per_step.append((tk2.klt_lk.launches - before[0],
+                         tv1.klt_v1.launches - before[1]))
+        s_e = chip_smoke.eager_step(vo_e, s_e, frames[i], generator=gen(i))
+        # The bootstrap ends at frame 2 with frame_idx 1.
+        assert s_g.host_frame == s_e.host_frame == int(s_g.frame_idx) == i - 1
+        for k, (a, b) in enumerate(zip(s_g.tensors(), s_e.tensors())):
+            assert same_bits(a, b), (i, k, describe(a, b))
+    assert per_step == [(3, 0)] * (GRAPH_FRAMES - 3)
+    assert vo_g.ba_runs == triggers >= 12
+    assert len(vo_g.graphs.graphs) == 2  # float32 frames: skip and BA
+    assert vo_g.graphs.replays == GRAPH_FRAMES - 3
+
+
+def test_graph_step_takes_uint8_frames_and_any_held_state(cuda):
+    """A uint8 frame goes through its own buffer and graph, bit for bit as
+    the eager body casts it; a state the graph did not return (here one
+    from the host) is copied in field by field."""
+    from monocular_visual_odometry_va4mr_torch.core.state import FrameState
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo = make()
+    u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames]
+    s = vo.bootstrap(u8[0], u8[2], intermediate=u8[1:2],
+                     generator=runner.frame_generator(0, 0, cuda))
+    for i in range(3, 8):
+        s = vo.step(s, u8[i], generator=runner.frame_generator(0, i, cuda))
+    held = FrameState.from_numpy(s.to_numpy(), cuda)
+    nxt = vo.step(held, u8[8], generator=runner.frame_generator(0, 8, cuda))
+    ref = chip_smoke.eager_step(vo, held, torch.from_numpy(u8[8]).to(cuda),
+                                generator=runner.frame_generator(0, 8, cuda))
+    for a, b in zip(nxt.tensors(), ref.tensors()):
+        assert same_bits(a, b)
+    assert {k[0] for k in vo.graphs.graphs} == {torch.uint8}
+
+
+def test_recovery_reenters_the_graph_as_the_eager_run(cuda):
+    """``run_sequence`` through two black frames: the re-bootstrapped state
+    enters the graph's buffers, and every record equals the same run
+    stepped op by op."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    frames = [np.zeros_like(f) if i in (8, 9) else f
+              for i, f in enumerate(frames[:20])]
+    vo_g, vo_e = make(), make()
+    vo_e.step = lambda state, image, generator=None: chip_smoke.eager_step(
+        vo_e, state, image, generator)
+    boots = chip_smoke.CountingBootstrap(vo_g)
+    res_g = runner.run_sequence(vo_g, enumerate(frames), bootstrap_stride=2)
+    res_e = runner.run_sequence(vo_e, enumerate(frames), bootstrap_stride=2)
+    assert boots.recoveries >= 1
+    assert [r.status for r in res_g.records] == [r.status
+                                                 for r in res_e.records]
+    np.testing.assert_array_equal(res_g.positions, res_e.positions)
+
+
+def test_graph_step_raises_for_a_sampler_without_draw(cuda):
+    """No fallback: a sampler that only maps (generator, valid) to a bank
+    cannot feed the captured step, and the step raises."""
+    from monocular_visual_odometry_va4mr_torch.ops import ransac
+
+    make, frames = graph_vo(cuda, sampler=lambda g, v, n, k:
+                            ransac.sample_minimal_sets(g, v, n, k))
+    vo = make()
+    s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2])
+    with pytest.raises(TypeError, match="draw"):
+        vo.step(s, frames[3])
