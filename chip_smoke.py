@@ -24,7 +24,12 @@ exits nonzero:
    its ``call_ms``, the median of 20 single calls between two events on an
    idle card, host work included; ``plain_ms``, the plain version's time
    measured as ``call_ms`` (it waits on the card inside, so no spin can
-   cover its enqueue).
+   cover its enqueue).  Then the batched case: the full-res forward call of
+   4 consecutive frame pairs (12->13 .. 15->16) stacked on a batch axis, one
+   launch of 4 x 1024 features, held against the batched plain version
+   (``POS_TOL_PX``, ``OK_AGREE``) and against the 4 solo launches, which it
+   must equal bit for bit; its ``device_ms`` beside its bound over all 4096
+   features.
 3. The main path, as ``bench.py`` drives it: the 100-frame textured
    KITTI-geometry scene (seed 11), ``kitti_tuned_config()`` with the KLT
    bootstrap and ``detector.quality_level=0.03`` (``klt.backend="auto"``, i.e.
@@ -62,7 +67,8 @@ exits nonzero:
    a frame, with 3 ``klt_lk`` device events a frame.
 5. The v1 LK kernel (``klt_v1``) against its plain version, the same three
    shapes and tolerances, and an input whose every template meets the
-   reference's template row wrap (``wrap_call``: slab row yi % 8 == 0).
+   reference's template row wrap (``wrap_call``: slab row yi % 8 == 0);
+   the batched case of phase 2 on the v1 kernel.
 6. The CLI in a subprocess: ``python -m monocular_visual_odometry_va4mr_torch
    .run --dataset synthetic`` over 40 frames with host-side BA every 8 and a
    checkpoint at frame 20, then again with ``--resume``; both exit 0 and the
@@ -89,7 +95,9 @@ B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
    BA off, streamed as uint8 by ``scan_driver.run_streaming`` (blocks of
    64, landmark snapshots, recovery) through ``keep_every``; then
    ``bank_from_stream`` (512 SIFT features a keyframe) and
-   ``refine_stream_trajectory(method="sim3")``.  Gates: ``klt_lk`` 3
+   ``refine_stream_trajectory(method="sim3")``, whose loop verifier takes
+   each chunk of 8 candidate pairs in one batched call (its seconds and
+   calls printed).  Gates: ``klt_lk`` 3
    launches per step run plus 3 per bootstrap hop (re-bootstraps and the
    re-run of a block's tail after a recovery included); LOST <= 2% of the
    frames; a finite trajectory; >= 70 keyframes; >= 2 verified loop edges
@@ -132,10 +140,22 @@ D. The realism stress of ``tests/test_tpu_e2e.py``: textured scene seed 7,
    runs on the CPU too, and each of its steps is replayed on the card from
    the CPU's state: every step's inlier and tracked counts and status
    equal, the median position change <= ``REPLAY_MEDIAN_TOL``.
-E. ``parallel/`` on the card: ``multi_seq.run_sequences_dp`` over two
-   376x1241 sequences (the main scene's frames 0-23, phase B's 0-23,
-   KITTI-05 K) on one VO against two solo ``run_sequence`` runs (statuses
-   equal, positions within ``STREAM_POS_TOL``); then a one-rank NCCL group
+E. ``parallel/`` on the card: ``multi_seq.run_sequences_dp`` on the batched
+   step (one replay a frame for every sequence) over S = 2 376x1241
+   sequences (the main scene's frames 0-23, phase B's 0-23, KITTI-05 K),
+   then over S = 11 (the KITTI 00-10 count), 11 windows of 24 frames of
+   phase B's stream.  Each sequence is held against the same sequence run
+   alone in a batch of one (``step_batch``, the same draws: statuses equal,
+   positions within ``STREAM_POS_TOL``; a sequence must not depend on its
+   batch-mates) and against its solo ``run_sequence`` (the libraries'
+   arithmetic) on the ground truth: finite, its ATE at most the solo run's
+   plus the health gate's 2% of the path.  ``klt_lk`` 3 launches per batched
+   step plus 3 per bootstrap hop; ms per batched frame, frames/s over all
+   sequences, device events, host dispatches and device ms per batched step
+   beside a batch of one's (the events within 10%: nothing runs per
+   sequence) and a solo step's (the libraries' arithmetic, fewer kernels),
+   peak device memory and capture seconds; then a
+   one-rank NCCL group
    (``FileStore`` under ``build/``): ``run_ba_sharded`` against ``run_ba``
    and ``run_traj_ba`` against the per-segment BA, with the collectives
    each call issued.  More ranks than one need more cards; the CPU tests
@@ -182,6 +202,7 @@ BOOTSTRAP_STRIDE = 4
 SEED = 11
 TIMED_START = 12  # frames before this warm up the step (bench.py)
 N_FEATURES = 1024  # 512 landmark + 512 candidate slots at the bench point
+BATCH = 4  # problems of the kernels' batched case
 POS_TOL_PX = 1e-3  # kernel vs plain version, features both accept
 OK_AGREE = 0.99  # kernel vs plain ok flags (the rest sit on a gate threshold)
 XLA_FRAMES = 20
@@ -244,6 +265,10 @@ STRESS = (
 )
 # Phase E: parallel/ on the card.
 MULTI_FRAMES = 24
+MULTI_SEQS = 11  # KITTI odometry 00-10 (the reference's configs[4])
+# Device events of a batched step within this share of a batch of one's: no
+# op runs once per sequence.
+EVENTS_TOL = 0.10
 PAR_BA_ITERS, PAR_TRAJ_ITERS = 5, 4
 PAR_BA_POS_TOL, PAR_BA_LM_TOL, PAR_TRAJ_TOL = 1e-5, 1e-4, 2e-4
 PKG = "monocular_visual_odometry_va4mr_torch"
@@ -368,17 +393,19 @@ def iterations_run(plain, offset_cols, num_iters):
 
 def kernel_case(name, kernel, plain, args, n, offset_cols, *, num_iters,
                 in_row_bytes, extra):
-    """One kernel against its plain version on one plane pair."""
+    """One kernel against its plain version on one plane pair, or on a
+    batch of them (planes (B, H, W); ``n`` counts the features of all)."""
     import torch
 
-    out_k = kernel(*args, num_iters=num_iters, **extra)
-    out_p = plain(*args, num_iters=num_iters, **extra)
+    out_k = kernel(*args, num_iters=num_iters, **extra).reshape(-1, 5)
+    out_p = plain(*args, num_iters=num_iters, **extra).reshape(-1, 5)
     torch.cuda.synchronize()
     ok_k, ok_p = out_k[:, 2] > 0.5, out_p[:, 2] > 0.5
     both = ok_k & ok_p
     d = (out_k[both, :2] - out_p[both, :2]).abs().amax(1)
     iters = iterations_run(
-        lambda k: plain(*args, num_iters=k, **extra), offset_cols, num_iters)
+        lambda k: plain(*args, num_iters=k, **extra).reshape(-1, 5),
+        offset_cols, num_iters)
     b_ms, b_by, nbytes, ops = bound_ms(n, iters, in_row_bytes, 5 * 4)
 
     def run_kernel():
@@ -404,18 +431,18 @@ def kernel_case(name, kernel, plain, args, n, offset_cols, *, num_iters,
     return res
 
 
-def bench_inputs(frames, vo):
-    """Frames 12 and 13 of the scene as ``vo``'s path sees them: flat
-    pyramids, its own corners (filled to N with random positions), the
-    coarse prior, and the LK iterations of its three calls (full-res and
-    mid forward, backward) from its config."""
+def bench_inputs(frames, vo, start=TIMED_START):
+    """Frames ``start`` and ``start + 1`` (12 and 13) of the scene as
+    ``vo``'s path sees them: flat pyramids, its own corners (filled to N
+    with random positions), the coarse prior, and the LK iterations of its
+    three calls (full-res and mid forward, backward) from its config."""
     import torch
 
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
 
     dev = vo.device
-    pyr_a = vo.make_pyramid(vo._as_image(frames[TIMED_START]))
-    pyr_b = vo.make_pyramid(vo._as_image(frames[TIMED_START + 1]))
+    pyr_a = vo.make_pyramid(vo._as_image(frames[start]))
+    pyr_b = vo.make_pyramid(vo._as_image(frames[start + 1]))
     uv, _, det_valid = vo._detect(pyr_a[0])
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = vo.config.image_shape
@@ -523,14 +550,54 @@ def wrap_call(name, inputs, prefix=""):
             (tmpl, srch, meta), iters, gates, v1.META_COLS * 4)
 
 
-def phase_kernels(name, inputs, prefix=""):
+def phase_kernels(name, inputs, prefix="", batch_inputs=None):
     """Kernel ``name`` against its plain version at a path's three calls,
-    and on the input whose slab rows wrap (``wrap_call``)."""
-    return [kernel_case(case, kernel, plain, args, args[2].shape[0], [0, 1],
-                        num_iters=iters, in_row_bytes=row_bytes, extra=extra)
-            for case, kernel, plain, args, iters, extra, row_bytes
-            in kernel_calls(name, inputs, prefix)
-            + [wrap_call(name, inputs, prefix)]]
+    and on the input whose slab rows wrap (``wrap_call``); with
+    ``batch_inputs``, the batched case (``batched_case``) last."""
+    cases = [kernel_case(case, kernel, plain, args, args[2].shape[0], [0, 1],
+                         num_iters=iters, in_row_bytes=row_bytes, extra=extra)
+             for case, kernel, plain, args, iters, extra, row_bytes
+             in kernel_calls(name, inputs, prefix)
+             + [wrap_call(name, inputs, prefix)]]
+    if batch_inputs is not None:
+        cases.append(batched_case(name, batch_inputs))
+    return cases
+
+
+def batch_pairs(frames, vo):
+    """``bench_inputs`` of the frame pairs TIMED_START + k -> + k + 1,
+    k < BATCH: the batched case's problems."""
+    return [bench_inputs(frames, vo, TIMED_START + k) for k in range(BATCH)]
+
+
+def batched_case(name, batch_inputs):
+    """Kernel ``name`` on its full-res forward call of BATCH frame pairs
+    stacked on a batch axis: one launch for all, held against the batched
+    plain version as ``kernel_case`` holds a call, and against the BATCH
+    solo launches, which it must equal bit for bit."""
+    import torch
+
+    calls = [kernel_calls(name, inputs)[0] for inputs in batch_inputs]
+    _, kernel, plain, _, iters, extra, row_bytes = calls[0]
+    args = [torch.stack(ts) for ts in zip(*(c[3] for c in calls))]
+    n = args[2].shape[0] * args[2].shape[1]
+    before = kernel.launches
+    out_b = kernel(*args, num_iters=iters, **extra)
+    launches = kernel.launches - before
+    solo = torch.stack([kernel(*c[3], num_iters=iters, **extra)
+                        for c in calls])
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(out_b.view(torch.int32), solo.view(torch.int32))
+    res = kernel_case(f"full_res_forward_batch{BATCH}", kernel, plain, args,
+                      n, [0, 1], num_iters=iters, in_row_bytes=row_bytes,
+                      extra=extra)
+    res.update(batch=BATCH, launches_per_call=launches,
+               bit_equal_to_solo=bit_equal)
+    print("kernel_batched " + json.dumps(res), flush=True)
+    if not (bit_equal and launches == 1):
+        raise RuntimeError(f"the batched launch differs from {BATCH} solo "
+                           f"launches, or was not one launch: {res}")
+    return res
 
 
 def phase_main_path(scene, frames, vo, cfg, cam):
@@ -581,6 +648,7 @@ def phase_main_path(scene, frames, vo, cfg, cam):
                step_ms_median=statistics.median(step_ms),
                step_ms_mean=statistics.fmean(step_ms),
                launches=launches, launches_expected=expected,
+               launches_per_step=(launches - 3 * b) / n_steps,
                profile=profile)
     print("main_path " + json.dumps(res), flush=True)
     if not healthy(res):
@@ -849,6 +917,39 @@ class CountingStep:
         return self.inner(state, image, generator=generator, **kw)
 
 
+class CountingBatch:
+    """Wraps ``vo.step_batch`` to count the batched steps run, each timed
+    between two device syncs, and to keep the last call's arguments."""
+
+    def __init__(self, vo):
+        self.vo = vo
+        self.inner = vo.step_batch
+        self.ms, self.captured = [], []
+        self.last = None
+        vo.step_batch = self
+
+    def __call__(self, states, images, generators, **kw):
+        import torch
+
+        graphs = self.graphs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner(states, images, generators, **kw)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.captured.append(self.graphs() != graphs)
+        self.last = (states, images)
+        return out
+
+    def graphs(self):
+        """The VO's captured graphs so far (none before the first replay)."""
+        return len(self.vo.graphs.graphs) if self.vo.graphs else 0
+
+    @property
+    def calls(self):
+        return len(self.ms)
+
+
 def run_path(scene, frames, vo, num_frames):
     """``runner.run_sequence`` over the first ``num_frames`` frames; the
     kernels' counts are zeroed just before and read just after."""
@@ -872,6 +973,7 @@ def run_path(scene, frames, vo, num_frames):
     res.update(
         backend=vo.klt_backend, wall_s=wall_s, launches=counts,
         launches_expected=3 * boots.hops + 3 * (len(recs) - 1),
+        bootstrap_hops=boots.hops, steps=len(recs) - 1,
         bootstrap_calls=len(boots.calls), recoveries=boots.recoveries,
         bootstrap_landmarks=boots.calls[0][2],
         step_ms_median=statistics.median(step_ms),
@@ -1178,6 +1280,8 @@ def phase_loop(ctx):
     kfs = bank.keyframes
     cands = pr.retrieve_candidates(bank)
     loops_t = Timed(pr, "detect_loops")
+    verify_t = Timed(pr, "verify_pairs")
+    chunk_t = Timed(pr, "verify_geometry")  # once a chunk, under vmap
     solve_t = Timed(posegraph_sim3, "optimize")
     prune_t = Timed(posegraph_sim3, "optimize_consistent")
     try:
@@ -1186,7 +1290,7 @@ def phase_loop(ctx):
                                               method="sim3", verbose=True)
         refine_s = time.perf_counter() - t0
     finally:
-        for t in (loops_t, solve_t, prune_t):
+        for t in (loops_t, verify_t, chunk_t, solve_t, prune_t):
             t.restore()
     loops = loops_t.results[0]
     far = [(kfs[a].frame, kfs[b_].frame) for a, b_, *_ in loops
@@ -1205,7 +1309,10 @@ def phase_loop(ctx):
         dropped=[int(d) for d in prune_t.results[0][2]]
         if prune_t.results else None,
         verify_s=loops_t.seconds[0],
-        verify_ms_per_chunk=1e3 * loops_t.seconds[0] / max(
+        verify_pairs_s=verify_t.seconds[0],
+        verify_chunks=-(-len(cands) // pr.VERIFY_CHUNK),
+        verify_batched_calls=len(chunk_t.seconds),
+        verify_ms_per_chunk=1e3 * verify_t.seconds[0] / max(
             1, -(-len(cands) // pr.VERIFY_CHUNK)),
         solves=n_solves, solve_s=sum(solve_t.seconds),
         gn_ms_per_iteration=1e3 * sum(solve_t.seconds) / max(
@@ -1216,6 +1323,9 @@ def phase_loop(ctx):
     if not (len(kfs) >= LOOP_MIN_KEYFRAMES and len(far) >= LOOP_MIN_EDGES
             and ok_ref):
         raise RuntimeError(f"loop pose graph failed its gates: {pg}")
+    if pg["verify_batched_calls"] != pg["verify_chunks"]:
+        raise RuntimeError(f"the verifier made other than one batched call "
+                           f"a chunk: {pg}")
 
     records = [runner.FrameRecord(f, pose_WC(T), 0, 0, 0, 0.0)
                for f, T in zip(fids, outs.T_CW)]
@@ -1592,56 +1702,35 @@ def phase_stress():
     return out
 
 
-def phase_parallel(ctx, frames):
-    """Phase E: lockstep sequences on one card, then the sharded BAs on a
-    one-rank NCCL group."""
+def phase_parallel(ctx, scene, frames):
+    """Phase E: lockstep sequences on one card, S = 2 then S = 11, on the
+    batched step (``lockstep``), then the sharded BAs on a one-rank NCCL
+    group."""
     import torch
     import torch.distributed as dist
 
     from monocular_visual_odometry_va4mr_torch.backend import ba
     from monocular_visual_odometry_va4mr_torch.dataio import datasets
-    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.parallel import (
-        ba_sharded, multi_seq, multihost, traj_ba)
-    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+        ba_sharded, multihost, traj_ba)
 
     loop = ctx["loop"]
     cfg, cam, vo = main_path_vo(loop["scene"])
     if cam != cam.from_matrix(datasets.KITTI_K):
         raise RuntimeError("the sequences are not at the KITTI-05 intrinsics")
-    seqs = [list(frames[:MULTI_FRAMES]), list(loop["frames"][:MULTI_FRAMES])]
-    boots, steps = CountingBootstrap(vo), CountingStep(vo)
-    torch.cuda.synchronize()
-    k2.klt_lk.launches = 0
-    t0 = time.perf_counter()
-    lock = multi_seq.run_sequences_dp(vo, seqs,
-                                      bootstrap_stride=BOOTSTRAP_STRIDE)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    lock_launches = k2.klt_lk.launches
-    lock_steps = steps.calls
-    res = dict(sequences=len(seqs), frames=MULTI_FRAMES, lockstep_s=t1 - t0,
-               launches=lock_launches,
-               launches_expected=3 * (lock_steps + boots.hops),
-               lockstep_ms_per_slot_step=1e3 * (t1 - steps.first)
-               / lock_steps)
-    solo_ms, ok = [], True
-    for s, seq in enumerate(seqs):
-        solo = runner.run_sequence(vo, enumerate(seq),
-                                   seed=multi_seq.sequence_seed(0, s),
-                                   bootstrap_stride=BOOTSTRAP_STRIDE,
-                                   recover=False)
-        pos = solo.positions[1:]
-        path = float(np.sum(np.linalg.norm(np.diff(pos, axis=0), axis=1)))
-        diff = float(np.abs(lock.positions[s] - pos).max())
-        same = lock.status[s].tolist() == [r.status
-                                           for r in solo.records[1:]]
-        solo_ms += [r.wall_ms for r in solo.records[1:]]
-        res[f"seq{s}"] = dict(pos_diff=diff, tol=STREAM_POS_TOL * path,
-                              statuses_equal=same,
-                              lost=int((lock.status[s] != 0).sum()))
-        ok &= same and diff <= STREAM_POS_TOL * path
-    res["solo_step_ms_mean"] = statistics.fmean(solo_ms)
+    gap = (LOOP_FRAMES - MULTI_FRAMES) // (MULTI_SEQS - 1)
+    # (scene, its first frame) of each sequence, for its ground truth.
+    starts = {"s2": [(scene, 0), (loop["scene"], 0)],
+              f"s{MULTI_SEQS}": [(loop["scene"], k * gap)
+                                 for k in range(MULTI_SEQS)]}
+    sources = {"s2": [frames, loop["frames"]],
+               f"s{MULTI_SEQS}": [loop["frames"]] * MULTI_SEQS}
+    res, ok = dict(frames=MULTI_FRAMES), True
+    for name, truth in starts.items():
+        seqs = [list(fr[a:a + MULTI_FRAMES])
+                for fr, (_, a) in zip(sources[name], truth)]
+        res[name] = lock = lockstep(vo, seqs, truth)
+        ok &= lock["ok"]
 
     # One-rank NCCL group: the sharded BAs on the card.
     store = tempfile.mkdtemp(prefix="nccl-", dir=os.path.join(REPO, "build"))
@@ -1678,9 +1767,7 @@ def phase_parallel(ctx, frames):
     res["nccl_one_rank"] = nccl
     print("parallel " + json.dumps(res), flush=True)
     if not ok:
-        raise RuntimeError(f"lockstep differs from the solo runs: {res}")
-    if lock_launches != res["launches_expected"]:
-        raise RuntimeError(f"klt_lk launches off in lockstep: {res}")
+        raise RuntimeError(f"lockstep failed its gates: {res}")
     if not (nccl["backend"] == "nccl"
             and nccl["ba_pos_diff"] <= PAR_BA_POS_TOL
             and nccl["ba_lm_diff"] <= PAR_BA_LM_TOL
@@ -1692,17 +1779,143 @@ def phase_parallel(ctx, frames):
     return res
 
 
-def kernel_entry(name, cases, launches, launches_by_path=None):
+def batch_of_one(vo, seq, s):
+    """Sequence ``s`` of a lockstep run stepped alone on the batched step: a
+    batch of one, bootstrapped and drawn as ``multi_seq.run_sequences_dp``
+    bootstraps and draws it.  Returns (positions (F, 3), statuses) of its
+    frames ``BOOTSTRAP_STRIDE + 1`` on."""
+    from monocular_visual_odometry_va4mr_torch.core.state import stack_states
+    from monocular_visual_odometry_va4mr_torch.parallel import multi_seq
+    from monocular_visual_odometry_va4mr_torch.pipeline.runner import (
+        _T_WC, frame_generator)
+
+    sd, b = multi_seq.sequence_seed(0, s), BOOTSTRAP_STRIDE
+    state = stack_states([vo.bootstrap(
+        seq[0], seq[b], intermediate=seq[1:b],
+        generator=frame_generator(sd, 0, vo.device))])
+    pos, sts = [], []
+    for f in range(b + 1, len(seq)):
+        state = vo.step_batch(state, [seq[f]],
+                              [frame_generator(sd, f, vo.device)])
+        pos.append(_T_WC(state.T_CW[0].cpu().numpy())[:3, 3])
+        sts.append(int(state.status[0]))
+    return np.stack(pos), sts
+
+
+def lockstep(vo, seqs, truth):
+    """``multi_seq.run_sequences_dp`` over ``seqs`` on the batched step, the
+    counts zeroed just before and read just after.  Each sequence against
+    itself in a batch of one (``batch_of_one``: the same arithmetic and
+    draws, so any difference comes from its batch-mates), and against its
+    solo ``run_sequence`` (the libraries' arithmetic) on its ground truth
+    (``truth``: per sequence, its scene and the scene's frame of its first
+    frame): finite, its ATE at most the solo run's plus the health gate's
+    2% of the path (LOST and the largest position difference printed).  A batched step's profile beside a batch
+    of one's and a solo step's.  Returns its line, with ``ok`` the verdict
+    of its gates."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.core.state import (
+        stack_states, unstack_states)
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+    from monocular_visual_odometry_va4mr_torch.parallel import multi_seq
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    S = len(seqs)
+    boots, batches = CountingBootstrap(vo), CountingBatch(vo)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k2.klt_lk.launches = 0
+    t0 = time.perf_counter()
+    lock = multi_seq.run_sequences_dp(vo, seqs,
+                                      bootstrap_stride=BOOTSTRAP_STRIDE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = k2.klt_lk.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    steady = [ms for ms, c in zip(batches.ms, batches.captured) if not c]
+    ms = statistics.median(steady)
+    res = dict(
+        sequences=S, lockstep_s=wall_s, batched_steps=batches.calls,
+        launches=launches, bootstrap_hops=boots.hops,
+        launches_expected=3 * (batches.calls + boots.hops),
+        launches_per_batched_step=(launches - 3 * boots.hops)
+        / batches.calls,
+        ms_per_batched_frame=ms, frames_per_s=1e3 * S / ms,
+        peak_device_mb=peak_mb,
+        capture_s={"/".join(str(k) for k in key): v
+                   for key, v in (vo.graphs.capture_s.items() if vo.graphs
+                                  else ()) if key[-1] == S})
+    ok = launches == res["launches_expected"]
+    states, images = batches.last
+    vo.bootstrap, vo.step_batch = boots.inner, batches.inner
+    b = BOOTSTRAP_STRIDE
+    for s, seq in enumerate(seqs):
+        one_pos, one_status = batch_of_one(vo, seq, s)
+        solo = runner.run_sequence(vo, enumerate(seq),
+                                   seed=multi_seq.sequence_seed(0, s),
+                                   bootstrap_stride=b, recover=False)
+        scene, first = truth[s]
+        ids = range(first + b + 1, first + len(seq))
+        gt = trajectory_health(scene, ids, lock.positions[s],
+                               lock.status[s].tolist())
+        solo_gt = trajectory_health(scene, ids, solo.positions[1:],
+                                    [r.status for r in solo.records[1:]])
+        path = float(np.sum(np.linalg.norm(np.diff(one_pos, axis=0),
+                                           axis=1)))
+        diff = float(np.abs(lock.positions[s] - one_pos).max())
+        same = lock.status[s].tolist() == one_status
+        res[f"seq{s}"] = dict(
+            pos_diff=diff, tol=STREAM_POS_TOL * path, statuses_equal=same,
+            lost=gt["lost"], ate=gt["ate"], ate_bound=gt["ate_bound"],
+            finite=gt["finite"],
+            solo=dict(ate=solo_gt["ate"], lost=solo_gt["lost"],
+                      pos_diff=float(np.abs(lock.positions[s]
+                                            - solo.positions[1:]).max())))
+        ok &= (same and diff <= STREAM_POS_TOL * path and gt["finite"]
+               and gt["ate"] <= solo_gt["ate"] + gt["ate_bound"])
+    # One frame of every sequence, batched, beside the first sequence's
+    # frame in a batch of one and alone: the same state and images, each on
+    # its graph (skip or BA alike).
+    one = unstack_states(states)[0]
+    one_batch = stack_states([one])
+    gens = [torch.Generator(device=vo.device).manual_seed(s)
+            for s in range(S)]
+    prof = {}
+    for name, fn in (
+            ("batched", lambda: vo.step_batch(states, images, gens)),
+            ("one", lambda: vo.step_batch(one_batch, images[:1], gens[:1])),
+            ("solo", lambda: vo.step(one, images[0], generator=gens[0]))):
+        d_ms, events, disp = profile_calls(fn)
+        prof[name] = dict(device_ms=d_ms, device_events=events,
+                          dispatches=disp)
+    for name in ("one", "solo"):
+        prof[f"events_ratio_{name}"] = (prof["batched"]["device_events"]
+                                        / prof[name]["device_events"])
+    # Against the batch of one, the same arithmetic: what grows runs per
+    # sequence.  The solo step's libraries take fewer kernels (printed).
+    ok &= abs(prof["events_ratio_one"] - 1.0) <= EVENTS_TOL
+    res["profile"] = prof
+    res["ok"] = bool(ok)
+    print(f"lockstep_s{S} " + json.dumps(res), flush=True)
+    return res
+
+
+def kernel_entry(name, cases, launches, per_step, launches_by_path,
+                 per_batched_step=None):
     """The kernel's line: its numbers at the main path's full resolution,
     and beside them each case's (every shape of every path) device time,
     host-inclusive call time and bound.  ``ms`` keeps the meaning it has had
     since the first kernel line, one call with the host's work included, and
     equals ``call_ms``; ``device_ms`` is the kernel on the card alone.
-    ``launches``: the main path's run; ``launches_by_path``: every path's."""
+    ``launches``: the main path's run; ``launches_by_path``: every path's;
+    ``per_step``, ``per_batched_step``: launches per step and per batched
+    step (by run) in those runs, bootstrap hops left out."""
     full = cases[0]
     return dict(name=name, route="cuda", **KERNELS[name], launches=launches,
-                launches_per_step=3,
-                launches_by_path=launches_by_path or {"main_path": launches},
+                launches_per_step=per_step,
+                launches_per_batched_step=per_batched_step,
+                launches_by_path=launches_by_path,
                 max_abs_err=max(c["pos_max"] for c in cases),
                 ms=full["call_ms"], device_ms=full["device_ms"],
                 call_ms=full["call_ms"], plain_ms=full["plain_ms"],
@@ -1751,14 +1964,17 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg, cam, vo = main_path_vo(scene)
     inputs = bench_inputs(frames, vo)
+    batch_inputs = batch_pairs(frames, vo)
     res, ctx = {}, {}
     for name, phase in (
-            ("kernels_klt_lk", lambda: phase_kernels("klt_lk", inputs)),
+            ("kernels_klt_lk", lambda: phase_kernels("klt_lk", inputs,
+                                                     batch_inputs=batch_inputs)),
             ("main_path", lambda: phase_main_path(scene, frames, vo, cfg,
                                                   cam)),
             ("presets", lambda: phase_presets(smi)),
             ("stream_path", lambda: phase_stream(scene, frames, vo)),
-            ("kernels_klt_v1", lambda: phase_kernels("klt_v1", inputs)),
+            ("kernels_klt_v1", lambda: phase_kernels(
+                "klt_v1", inputs, batch_inputs=batch_inputs)),
             ("sift_path", lambda: phase_sift(scene, frames, cam)),
             ("cli", phase_cli),
             ("xla_path", lambda: phase_xla(scene, frames, cfg, cam)),
@@ -1766,7 +1982,7 @@ def main():
             ("loop", lambda: phase_loop(ctx)),
             ("disk", lambda: phase_disk(ctx)),
             ("stress", phase_stress),
-            ("parallel", lambda: phase_parallel(ctx, frames))):
+            ("parallel", lambda: phase_parallel(ctx, scene, frames))):
         t0 = time.perf_counter()
         res[name] = phase()
         print(f"phase {name} {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1774,12 +1990,21 @@ def main():
     v1_cases = res["kernels_klt_v1"]
     main_res, v1_res = res["main_path"], res["v1_path"]
 
+    lock = {f"lockstep_{k}": res["parallel"][k]
+            for k in ("s2", f"s{MULTI_SEQS}")}
+    v1_launches = v1_res["launches"]["klt_v1"]
     print(json.dumps({"kernels": [
-        kernel_entry("klt_lk", lk_cases, main_res["launches"], {
-            "main_path": main_res["launches"],
-            f"presets_{PRESET}": res["presets"]["path"]["launches"]}),
-        kernel_entry("klt_v1", v1_cases, v1_res["launches"]["klt_v1"],
-                     {"v1_path": v1_res["launches"]["klt_v1"]})]}))
+        kernel_entry("klt_lk", lk_cases, main_res["launches"],
+                     main_res["launches_per_step"], {
+                         "main_path": main_res["launches"],
+                         f"presets_{PRESET}": res["presets"]["path"][
+                             "launches"],
+                         **{k: v["launches"] for k, v in lock.items()}},
+                     {k: v["launches_per_batched_step"]
+                      for k, v in lock.items()}),
+        kernel_entry("klt_v1", v1_cases, v1_launches,
+                     (v1_launches - 3 * v1_res["bootstrap_hops"])
+                     / v1_res["steps"], {"v1_path": v1_launches})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

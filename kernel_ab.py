@@ -13,7 +13,9 @@ are compared with its ``csrc/klt_lk.cu`` and ``csrc/klt_v1.cu``.
 ``--base-src`` compares kernel ``NAME`` alone with the source ``FILE``, for
 example ``klt_v1=variants/klt_v1_one_box.cu``.  Every source is built (one
 ``nvcc`` per source, all started together) and each kernel is called
-through this checkout's wrapper, so only the kernel differs.  The inputs
+through this checkout's wrapper, so only the kernel differs (a source from
+before the kernels' batch axis, whose launch takes no batch size, is called
+with a batch of one).  The inputs
 are ``chip_smoke.py``'s: frames 12 and 13 of ``bench.py``'s scene at the
 main path's three calls (full-res and /4 forward, full-res backward) and
 the input built so that the reference's slab wraps on every feature
@@ -78,9 +80,35 @@ def build_both(bases):
                 if "registers" in line or "spill" in line:
                     print("  ptxas " + line.strip())
             mod = importlib.import_module(f"{cs.PKG}.ops.{WRAPPERS[name]}")
-            entries[name, which] = (mod, _build.bind(
-                ctypes.CDLL(str(lib)), name, mod.LAUNCH_ARGTYPES))
+            src = bases[name] if which == "base" else _build.CSRC / f"{name}.cu"
+            if takes_batch(src, name):
+                entry = _build.bind(ctypes.CDLL(str(lib)), name,
+                                    mod.LAUNCH_ARGTYPES)
+            else:
+                entry = unbatched(_build.bind(
+                    ctypes.CDLL(str(lib)), name,
+                    mod.LAUNCH_ARGTYPES[:2] + mod.LAUNCH_ARGTYPES[3:]))
+            entries[name, which] = (mod, entry)
     return entries
+
+
+def takes_batch(src, name):
+    """Whether the source's ``<name>_launch`` takes the batch size B after
+    its two planes (sources from before the kernels' batch axis do not)."""
+    text = Path(src).read_text()
+    head = text[text.index(f"{name}_launch("):]
+    return "int B," in head[:head.index(")")]
+
+
+def unbatched(entry):
+    """An entry point without the batch size, called as one with it: only a
+    batch of one passes."""
+    def call(tmpl, srch, B, *rest):
+        if B != 1:
+            raise ValueError("this source's kernel has no batch axis")
+        return entry(tmpl, srch, *rest)
+
+    return call
 
 
 def wrapped(name, call):

@@ -16,7 +16,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Camera
-from ..core.linalg import inv3
+from ..core.linalg import einsum, inv3, matmul, solve, total
 
 
 class BAWindow(NamedTuple):
@@ -31,7 +31,7 @@ def _residuals_and_jacobians(window: BAWindow, cam: Camera, huber_px: float):
     Jp (W,L,2,3) and robust weights w (W,L)."""
     R = window.T_CW[:, :3, :3]
     t = window.T_CW[:, :3, 3]
-    Xc = torch.einsum("wij,lj->wli", R, window.lm_xyz) + t[:, None, :]
+    Xc = einsum("wij,lj->wli", R, window.lm_xyz) + t[:, None, :]
     x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
     z_safe = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / z_safe
@@ -48,8 +48,8 @@ def _residuals_and_jacobians(window: BAWindow, cam: Camera, huber_px: float):
     hatX = lie.hat(Xc)
     eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(hatX)
     Jxi = torch.cat([eye, -hatX], -1)  # (W,L,3,6)
-    Jc = Jproj @ Jxi
-    Jp = torch.einsum("wlab,wbc->wlac", Jproj, R)
+    Jc = matmul(Jproj, Jxi)
+    Jp = einsum("wlab,wbc->wlac", Jproj, R)
 
     # Invalid (masked, behind-camera or non-finite) observations are
     # hard-zeroed: dead slots can hold Inf/NaN and 0 * NaN poisons the sums.
@@ -76,22 +76,23 @@ def build_normal_blocks(window: BAWindow, cam: Camera, *,
     if camera_damping is None:
         camera_damping = damping
     r, Jc, Jp, w = _residuals_and_jacobians(window, cam, huber_px)
-    Hcc = torch.einsum("wl,wlai,wlaj->wij", w, Jc, Jc)
-    Hpp = torch.einsum("wl,wlai,wlaj->lij", w, Jp, Jp)
-    Hcp = torch.einsum("wl,wlai,wlaj->wlij", w, Jc, Jp)
-    b_c = torch.einsum("wl,wlai,wla->wi", w, Jc, r)
-    b_p = torch.einsum("wl,wlai,wla->li", w, Jp, r)
+    # core.linalg's contractions: they round alike alone and in a batch.
+    Hcc = einsum("wl,wlai,wlaj->wij", w, Jc, Jc)
+    Hpp = einsum("wl,wlai,wlaj->lij", w, Jp, Jp)
+    Hcp = einsum("wl,wlai,wlaj->wlij", w, Jc, Jp)
+    b_c = einsum("wl,wlai,wla->wi", w, Jc, r)
+    b_p = einsum("wl,wlai,wla->li", w, Jp, r)
 
     dev, dt = r.device, r.dtype
     Hpp_inv = inv3(Hpp + damping * torch.eye(3, dtype=dt, device=dev))
-    HcpHpi = torch.einsum("wlij,ljk->wlik", Hcp, Hpp_inv)
-    S = -torch.einsum("wlik,vljk->wvij", HcpHpi, Hcp)
+    HcpHpi = einsum("wlij,ljk->wlik", Hcp, Hpp_inv)
+    S = -einsum("wlik,vljk->wvij", HcpHpi, Hcp)
     W_ = window.T_CW.shape[0]
     ar = torch.arange(W_, device=dev)
     S[ar, ar] = S[ar, ar] + Hcc + camera_damping * torch.eye(6, dtype=dt,
                                                               device=dev)
-    rhs = b_c - torch.einsum("wlik,lk->wi", HcpHpi, b_p)
-    cost = 0.5 * torch.sum(w * torch.sum(r * r, -1))
+    rhs = b_c - einsum("wlik,lk->wi", HcpHpi, b_p)
+    cost = 0.5 * total(w * torch.sum(r * r, -1), (0, 1))
     return S, rhs, Hpp_inv, Hcp, b_p, cost
 
 
@@ -111,17 +112,17 @@ def solve_camera_system(S: torch.Tensor, rhs: torch.Tensor,
     rhs = rhs.clone()
     rhs[:n_fixed].fill_(0.0)
     S_mat = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
-    # solve_ex: a singular system gives non-finite values (as in the
-    # reference) instead of raising; the accept guard rejects them.
-    delta = torch.linalg.solve_ex(S_mat, -rhs.reshape(-1))[0]
+    # A singular system gives non-finite values (as in the reference)
+    # instead of raising; the accept guard rejects them.
+    delta = solve(S_mat, -rhs.reshape(-1))
     return delta.reshape(W, 6)
 
 
 def apply_updates(window: BAWindow, delta_c, Hpp_inv, Hcp, b_p) -> BAWindow:
     """Back-substitute landmarks and retract pose updates."""
-    HcpT_dc = torch.einsum("wlij,wi->lj", Hcp, delta_c)
-    delta_p = torch.einsum("lij,lj->li", Hpp_inv, -b_p - HcpT_dc)
-    T = lie.se3_exp(delta_c) @ window.T_CW
+    HcpT_dc = einsum("wlij,wi->lj", Hcp, delta_c)
+    delta_p = einsum("lij,lj->li", Hpp_inv, -b_p - HcpT_dc)
+    T = matmul(lie.se3_exp(delta_c), window.T_CW)
     return window._replace(T_CW=T, lm_xyz=window.lm_xyz + delta_p)
 
 
@@ -142,5 +143,5 @@ def reprojection_rms(window: BAWindow, cam: Camera) -> torch.Tensor:
     r, _, _, w = _residuals_and_jacobians(window, cam, huber_px=1e9)
     mask = w > 0
     n = torch.clamp(mask.sum(), min=1)
-    return torch.sqrt(torch.sum(torch.where(mask, torch.sum(r * r, -1),
-                                            torch.zeros_like(w))) / n)
+    return torch.sqrt(total(torch.where(mask, torch.sum(r * r, -1),
+                                        torch.zeros_like(w)), (0, 1)) / n)

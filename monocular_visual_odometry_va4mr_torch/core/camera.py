@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .linalg import constant
+from .linalg import constant, matmul
 
 
 class Camera(NamedTuple):
@@ -72,4 +72,4 @@ class Camera(NamedTuple):
 
 def projection_matrix(cam: Camera, T_CW: torch.Tensor) -> torch.Tensor:
     """3x4 projection P = K [R|t] from camera-from-world (..., 4, 4)."""
-    return cam.matrix(T_CW.device) @ T_CW[..., :3, :4]
+    return matmul(cam.matrix(T_CW.device), T_CW[..., :3, :4])

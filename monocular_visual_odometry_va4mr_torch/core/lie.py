@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .linalg import einsum, matmul
+
 _EPS = 1e-8
 
 
@@ -68,7 +70,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     a, b, _ = _exp_coeffs(torch.sum(w * w, -1))
     W = hat(w)
     return (_eye(3, w) + a[..., None, None] * W
-            + b[..., None, None] * (W @ W))
+            + b[..., None, None] * (matmul(W, W)))
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -102,11 +104,11 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     v, w = xi[..., :3], xi[..., 3:]
     a, b, c = _exp_coeffs(torch.sum(w * w, -1))
     W = hat(w)
-    WW = W @ W
+    WW = matmul(W, W)
     eye = _eye(3, xi)
     R = eye + a[..., None, None] * W + b[..., None, None] * WW
     V = eye + b[..., None, None] * W + c[..., None, None] * WW
-    return _homogeneous(R, torch.einsum("...ij,...j->...i", V, v))
+    return _homogeneous(R, einsum("...ij,...j->...i", V, v))
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -125,8 +127,8 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         (1.0 - half_theta * torch.cos(half_theta)
          / torch.clamp(torch.sin(half_theta), min=_EPS)) / theta2_safe,
         1.0 / 12.0 + theta2 / 720.0)
-    V_inv = _eye(3, T) - 0.5 * W + cot_term[..., None, None] * (W @ W)
-    v = torch.einsum("...ij,...j->...i", V_inv, t)
+    V_inv = _eye(3, T) - 0.5 * W + cot_term[..., None, None] * (matmul(W, W))
+    v = einsum("...ij,...j->...i", V_inv, t)
     return torch.cat([v, w], -1)
 
 
@@ -142,7 +144,7 @@ def matrix_to_rt(T: torch.Tensor):
 def invert_rt(R: torch.Tensor, t: torch.Tensor):
     """Rigid-transform inverse ``(R, t) -> (R^T, -R^T t)``."""
     Rinv = R.transpose(-1, -2)
-    return Rinv, -torch.einsum("...ij,...j->...i", Rinv, t)
+    return Rinv, -einsum("...ij,...j->...i", Rinv, t)
 
 
 def invert_se3(T: torch.Tensor) -> torch.Tensor:
@@ -200,14 +202,14 @@ def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     B = torch.where(small_sig, B_small, torch.where(small_th, B_sig, B_gen))
 
     return (C[..., None, None] * _eye(3, w) + A[..., None, None] * Om
-            + B[..., None, None] * (Om @ Om))
+            + B[..., None, None] * (matmul(Om, Om)))
 
 
 def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
     """sim(3) tangent (..., 7) = (v, w, sigma) -> similarity (..., 4, 4)."""
     v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
     sR = torch.exp(sigma)[..., None, None] * so3_exp(w)
-    t = torch.einsum("...ij,...j->...i", _sim3_W(w, sigma), v)
+    t = einsum("...ij,...j->...i", _sim3_W(w, sigma), v)
     return _homogeneous(sR, t)
 
 
@@ -232,7 +234,7 @@ def invert_sim3(S: torch.Tensor) -> torch.Tensor:
     sR = S[..., :3, :3]
     s2 = torch.sum(sR[..., 0, :] * sR[..., 0, :], -1)  # |s*R row|^2 = s^2
     Rts = sR.transpose(-1, -2) / s2[..., None, None]  # = R^T / s
-    return _homogeneous(Rts, -torch.einsum("...ij,...j->...i", Rts,
+    return _homogeneous(Rts, -einsum("...ij,...j->...i", Rts,
                                            S[..., :3, 3]))
 
 

@@ -16,6 +16,10 @@ itself).
 ``Packing`` lays a fixed set of tensors out in one flat byte buffer, each a
 view of it: the captured step (``pipeline/vo.py``) keeps its state there and
 copies a whole state with one copy.
+
+``stack_states`` puts S states of one layout on a leading axis, as the
+batched step (``VisualOdometry.step_batch``) takes them; ``unstack_states``
+takes them apart again.
 """
 from __future__ import annotations
 
@@ -176,16 +180,19 @@ class Packing:
                 .view(lead + s) for o, (s, dt) in zip(self.offsets,
                                                       self.specs)]
 
-    def check(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Raise unless ``tensors`` have this packing's shapes and dtypes."""
+    def check(self, tensors: Sequence[torch.Tensor], lead=()) -> None:
+        """Raise unless ``tensors`` have this packing's shapes, after the
+        leading dimensions ``lead``, and dtypes."""
         got = [(tuple(t.shape), t.dtype) for t in tensors]
-        if got != self.specs:
+        want = [(tuple(lead) + s, dt) for s, dt in self.specs]
+        if got != want:
             raise ValueError(f"tensors {got} do not fit the packing "
-                             f"{self.specs}")
+                             f"{want}")
 
     def pack(self, buf: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
-        """Copy ``tensors`` into their views of ``buf``."""
-        self.check(tensors)
+        """Copy ``tensors`` into their views of ``buf``; a buffer ``(...,
+        nbytes)`` takes tensors with its leading dimensions (a batch)."""
+        self.check(tensors, buf.shape[:-1])
         for view, t in zip(self.views(buf), tensors):
             view.copy_(t)
 
@@ -231,3 +238,29 @@ def init_state(config: PipelineConfig, pyramid: Tuple[torch.Tensor, ...],
     )
     state.host_frame = 0
     return state
+
+
+def stack_states(states: Sequence[FrameState]) -> FrameState:
+    """S states of one layout as one, every tensor stacked on a new leading
+    axis: the batched step's state.  The states step in lockstep, so they
+    must share ``host_frame``; raises otherwise."""
+    frames = {s.host_frame for s in states}
+    if len(frames) != 1 or None in frames:
+        raise ValueError(f"states in lockstep share their host frame index; "
+                         f"got {sorted(frames, key=str)}")
+    out = states[0].with_tensors([torch.stack(ts) for ts in
+                                  zip(*(s.tensors() for s in states))])
+    out.host_frame = frames.pop()
+    return out
+
+
+def unstack_states(state: FrameState) -> List[FrameState]:
+    """The S states of a stacked state, as views of its tensors, each with
+    its ``host_frame``."""
+    tensors = state.tensors()
+    out = []
+    for i in range(state.T_CW.shape[0]):
+        one = state.with_tensors([t[i] for t in tensors])
+        one.host_frame = state.host_frame
+        out.append(one)
+    return out

@@ -1,5 +1,10 @@
 // Translation-only Lucas-Kanade with a fixed template: one 128-thread block
-// per feature, the feature's pixels staged in shared memory.
+// per feature, the feature's pixels staged in shared memory.  A launch takes
+// B problems (gridDim.y = B, gridDim.x = n): block (f, b) tracks feature f of
+// problem b on problem b's planes, rows b * n + f of the (B, n) tables.  That
+// is the TPU kernel's extra grid axis under jax.vmap.  A launch of B = 1 runs
+// the instance without the batch axis (kBatched = false), the code of a launch
+// before it.
 //
 // Replaces the TPU kernel ops/klt_pallas2.py::_klt2_kernel of the JAX
 // package (launched by _run_klt2, klt_pallas2.py:237-267).  It computes what
@@ -144,7 +149,7 @@ __device__ __forceinline__ void window_sums(const float (*terms)[32],
 //   (tx, ty): integer template origin (window top-left), (fx, fy) its phase;
 //   (qx, qy): integer search origin, (gx0, gy0) the initial offset.
 // out row:  [gx, gy, ok, resid, min_eig]
-template <int kWin>
+template <int kWin, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 8)
     klt_lk_kernel(const float* __restrict__ tmpl,
                   const float* __restrict__ srch, int H, int W,
@@ -168,7 +173,14 @@ __global__ void __launch_bounds__(kThreads, 8)
   __shared__ bool win_last;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int f = blockIdx.x;
+  // Feature f of problem b: its planes and its row of the (B, n) tables.
+  // A launch of one problem takes the code of a launch with no batch axis.
+  if (kBatched) {
+    const size_t plane = static_cast<size_t>(blockIdx.y) * H * W;
+    tmpl += plane;
+    srch += plane;
+  }
+  const int f = kBatched ? blockIdx.y * gridDim.x + blockIdx.x : blockIdx.x;
 
   const float* fe = feat + 8 * f;
   const int tx = static_cast<int>(fe[0]);
@@ -348,28 +360,35 @@ __global__ void __launch_bounds__(kThreads, 8)
 }
 
 template <int kWin>
-void launch(const float* tmpl, const float* srch, int H, int W,
+void launch(const float* tmpl, const float* srch, int B, int H, int W,
             const float* feat, const unsigned char* valid, int n,
             int num_iters, float eps2, float min_eig_thr, float max_resid,
             float* out, cudaStream_t stream) {
-  klt_lk_kernel<kWin><<<n, kThreads, 0, stream>>>(
-      tmpl, srch, H, W, feat, valid, num_iters, eps2, min_eig_thr,
-      max_resid, out);
+  if (B == 1) {
+    klt_lk_kernel<kWin, false><<<n, kThreads, 0, stream>>>(
+        tmpl, srch, H, W, feat, valid, num_iters, eps2, min_eig_thr,
+        max_resid, out);
+  } else {
+    klt_lk_kernel<kWin, true><<<dim3(n, B), kThreads, 0, stream>>>(
+        tmpl, srch, H, W, feat, valid, num_iters, eps2, min_eig_thr,
+        max_resid, out);
+  }
 }
 
 }  // namespace
 
-extern "C" int klt_lk_launch(const float* tmpl, const float* srch, int H,
-                             int W, const float* feat,
+// tmpl, srch: (B, H, W); feat: (B, n, 8); valid: (B, n); out: (B, n, 5).
+extern "C" int klt_lk_launch(const float* tmpl, const float* srch, int B,
+                             int H, int W, const float* feat,
                              const unsigned char* valid, int n, int win,
                              int num_iters, float eps2, float min_eig_thr,
                              float max_resid, float* out,
                              cudaStream_t stream) {
-  if (n > 0) {
+  if (n > 0 && B > 0) {
     switch (win) {  // the wrapper admits odd windows 5..15
 #define KLT_LK_WIN(k)                                                     \
   case k:                                                                 \
-    launch<k>(tmpl, srch, H, W, feat, valid, n, num_iters, eps2,          \
+    launch<k>(tmpl, srch, B, H, W, feat, valid, n, num_iters, eps2,       \
               min_eig_thr, max_resid, out, stream);                       \
     break;
       KLT_LK_WIN(5) KLT_LK_WIN(7) KLT_LK_WIN(9) KLT_LK_WIN(11)

@@ -1,5 +1,10 @@
 // The v1 translation-only Lucas-Kanade tracker: one 64-thread block (two
-// warps) per feature, the feature's pixels staged in shared memory.
+// warps) per feature, the feature's pixels staged in shared memory.  A launch
+// takes B problems (gridDim.y = B, gridDim.x = n): block (f, b) tracks feature
+// f of problem b on problem b's planes, rows b * n + f of the (B, n) tables,
+// as the TPU kernel's extra grid axis under jax.vmap does.  A launch of B = 1
+// runs the instance without the batch axis (kBatched = false), the code of a
+// launch before it.
 //
 // Replaces the TPU kernel ops/klt_pallas.py::_klt_kernel of the JAX package
 // (launched by _run_klt_kernel, klt_pallas.py:315-339).  It computes what that
@@ -196,6 +201,7 @@ struct Window {
 
 // meta row: [py, px, qy, qx, valid]
 // out row:  [x, y, ok, resid, min_eig]
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads, 8)
     klt_v1_kernel(const float* __restrict__ tmpl,
                   const float* __restrict__ srch, int H, int W, int Hp,
@@ -209,7 +215,14 @@ __global__ void __launch_bounds__(kThreads, 8)
   __shared__ int win_last;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int f = blockIdx.x;
+  // Feature f of problem b: its planes and its row of the (B, n) tables.
+  // A launch of one problem takes the code of a launch with no batch axis.
+  if (kBatched) {
+    const size_t plane = static_cast<size_t>(blockIdx.y) * H * W;
+    tmpl += plane;
+    srch += plane;
+  }
+  const int f = kBatched ? blockIdx.y * gridDim.x + blockIdx.x : blockIdx.x;
 
   const float* m = meta + 5 * f;
   const float py = m[0];
@@ -464,15 +477,22 @@ __global__ void __launch_bounds__(kThreads, 8)
 
 }  // namespace
 
-extern "C" int klt_v1_launch(const float* tmpl, const float* srch, int H,
-                             int W, int Hp, int Wp, const float* meta, int n,
-                             int num_iters, float eps2, float min_eig_thr,
-                             float max_resid, float* out,
+// tmpl, srch: (B, H, W); meta: (B, n, 5); out: (B, n, 5).
+extern "C" int klt_v1_launch(const float* tmpl, const float* srch, int B,
+                             int H, int W, int Hp, int Wp, const float* meta,
+                             int n, int num_iters, float eps2,
+                             float min_eig_thr, float max_resid, float* out,
                              cudaStream_t stream) {
-  if (n > 0) {
-    klt_v1_kernel<<<n, kThreads, 0, stream>>>(tmpl, srch, H, W, Hp, Wp, meta,
-                                              num_iters, eps2, min_eig_thr,
-                                              max_resid, out);
+  if (n > 0 && B > 0) {
+    if (B == 1) {
+      klt_v1_kernel<false><<<n, kThreads, 0, stream>>>(
+          tmpl, srch, H, W, Hp, Wp, meta, num_iters, eps2, min_eig_thr,
+          max_resid, out);
+    } else {
+      klt_v1_kernel<true><<<dim3(n, B), kThreads, 0, stream>>>(
+          tmpl, srch, H, W, Hp, Wp, meta, num_iters, eps2, min_eig_thr,
+          max_resid, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

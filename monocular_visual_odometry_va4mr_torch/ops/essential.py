@@ -6,6 +6,12 @@ cheirality rescoring, and ``recover_pose``.
 The bank ``(idx, samp_ok)`` is an argument (``ops/ransac.py``).  ``eigh``
 and SVD bases and signs may differ from the reference's; every function
 here is invariant to them in its (R, t), which is what the tests compare.
+
+Every function runs under ``torch.func.vmap`` (the loop verifier,
+``pipeline/posegraph_runner.py``, batches a chunk of keyframe pairs so):
+nothing is written in place into a tensor made inside, no index is read on
+the host, and the products are ``core.linalg``'s, which on the CPU round
+alike alone and in a batch.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import math
 import torch
 
 from ..core.camera import Camera
+from ..core.linalg import constant, einsum, matmul
 from ..core.slots import stable_top_k
 from . import essential5, ransac, triangulate
 
@@ -30,11 +37,11 @@ def _hartley_normalize(pts: torch.Tensor, w: torch.Tensor):
     rms = torch.sqrt(torch.sum(torch.sum(centered ** 2, -1) * w, -1)
                      / wsum) + 1e-12
     s = math.sqrt(2.0) / rms
-    T = torch.zeros(s.shape + (3, 3), dtype=pts.dtype, device=pts.device)
-    T[..., 0, 0] = s
-    T[..., 1, 1] = s
-    T[..., 2, 2] = 1.0
-    T[..., :2, 2] = -s[..., None] * mean
+    z, one = torch.zeros_like(s), torch.ones_like(s)
+    tx, ty = (-s[..., None] * mean).unbind(-1)
+    T = torch.stack([torch.stack([s, z, tx], -1),
+                     torch.stack([z, s, ty], -1),
+                     torch.stack([z, z, one], -1)], -2)
     return centered * s[..., None, None], T
 
 
@@ -50,22 +57,25 @@ def _eight_point(x0: torch.Tensor, x1: torch.Tensor,
     ones = torch.ones_like(u0)
     A = torch.stack([u1 * u0, u1 * v0, u1, v1 * u0, v1 * v0, v1, u0, v0,
                      ones], -1)
-    AtA = torch.einsum("...ni,...nj->...ij", A * w[..., None], A)
+    AtA = einsum("...ni,...nj->...ij", A * w[..., None], A)
     _, vecs = torch.linalg.eigh(AtA)
     F = vecs[..., :, 0].reshape(w.shape[:-1] + (3, 3))
-    F = T1.transpose(-1, -2) @ F @ T0
+    F = matmul(matmul(T1.transpose(-1, -2), F), T0)
     return project_to_essential(F)
 
 
 def _svd3_rotations(E: torch.Tensor):
     """U, s, V of (..., 3, 3) via eigh of E^T E, with det(U) = det(V) = +1."""
-    EtE = E.transpose(-1, -2) @ E
+    EtE = matmul(E.transpose(-1, -2), E)
     _, V = torch.linalg.eigh(EtE)
     V = torch.flip(V, [-1])  # descending
     s = torch.sqrt(torch.clamp(torch.diagonal(
-        V.transpose(-1, -2) @ EtE @ V, dim1=-2, dim2=-1), min=0.0))
-    u0 = (E @ V[..., :, 0:1])[..., 0] / torch.clamp(s[..., 0:1], min=1e-12)
-    u1 = (E @ V[..., :, 1:2])[..., 0] / torch.clamp(s[..., 1:2], min=1e-12)
+        matmul(matmul(V.transpose(-1, -2), EtE), V), dim1=-2, dim2=-1),
+        min=0.0))
+    u0 = matmul(E, V[..., :, 0:1])[..., 0] / torch.clamp(s[..., 0:1],
+                                                         min=1e-12)
+    u1 = matmul(E, V[..., :, 1:2])[..., 0] / torch.clamp(s[..., 1:2],
+                                                         min=1e-12)
     u2 = torch.linalg.cross(u0, u1, dim=-1)
     U = torch.stack([u0, u1, u2], -1)
     V = torch.cat([V[..., :2], V[..., 2:] * torch.sign(
@@ -78,10 +88,11 @@ def _svd3_rotations(E: torch.Tensor):
 def project_to_essential(F: torch.Tensor) -> torch.Tensor:
     U, s, V = _svd3_rotations(F)
     sigma = 0.5 * (s[..., 0] + s[..., 1])
-    S = torch.zeros_like(F)
-    S[..., 0, 0] = sigma
-    S[..., 1, 1] = sigma
-    return U @ S @ V.transpose(-1, -2)
+    z = torch.zeros_like(sigma)
+    S = torch.stack([torch.stack([sigma, z, z], -1),
+                     torch.stack([z, sigma, z], -1),
+                     torch.stack([z, z, z], -1)], -2)
+    return matmul(matmul(U, S), V.transpose(-1, -2))
 
 
 def sampson_distance_sq(F: torch.Tensor, uv0: torch.Tensor,
@@ -112,7 +123,7 @@ def _so3_exp(w: torch.Tensor) -> torch.Tensor:
     th = torch.sqrt(th2 + 1e-24)
     K = _hat(w / th)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    Rbig = eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+    Rbig = eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * matmul(K, K)
     Rsmall = eye + _hat(w)
     return torch.where(th2 > 1e-12, Rbig, Rsmall)
 
@@ -123,12 +134,11 @@ def refine_essential_gn(E: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
     (5 dof), minimizing the weighted Sampson error in normalized coords."""
     dev, dt = E.device, E.dtype
     U, _, V = _svd3_rotations(E)
-    Wm = torch.tensor(_W, dtype=dt, device=dev)
-    R0 = U @ Wm @ V.T
+    Wm = constant(_W, dev)
+    R0 = matmul(matmul(U, Wm), V.T)
     t0 = U[:, 2]
-    a = torch.where(t0[0].abs() < 0.9,
-                    torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev),
-                    torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev))
+    a = torch.where(t0[0].abs() < 0.9, constant([1.0, 0.0, 0.0], dev),
+                    constant([0.0, 1.0, 0.0], dev))
     b1 = torch.linalg.cross(t0, a, dim=-1)
     b1 = b1 / torch.linalg.vector_norm(b1)
     b2 = torch.linalg.cross(t0, b1, dim=-1)
@@ -137,15 +147,15 @@ def refine_essential_gn(E: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
     h1 = torch.cat([x1, torch.ones_like(x1[:, :1])], -1)
 
     def model(params):
-        R = _so3_exp(params[:3]) @ R0
-        t = t0 + Bm @ params[3:]
+        R = matmul(_so3_exp(params[:3]), R0)
+        t = t0 + matmul(Bm, params[3:])
         t = t / torch.clamp(torch.linalg.vector_norm(t), min=1e-12)
-        return _hat(t) @ R
+        return matmul(_hat(t), R)
 
     def sampson(params):
         Em = model(params)
-        Ex0 = h0 @ Em.T
-        Etx1 = h1 @ Em
+        Ex0 = matmul(h0, Em.T)
+        Etx1 = matmul(h1, Em)
         num = torch.sum(h1 * Ex0, -1)
         den = torch.sqrt(Ex0[:, 0] ** 2 + Ex0[:, 1] ** 2 + Etx1[:, 0] ** 2
                          + Etx1[:, 1] ** 2 + 1e-18)
@@ -156,8 +166,8 @@ def refine_essential_gn(E: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
     for _ in range(iters):
         r = sampson(params)
         J = torch.func.jacfwd(sampson)(params)  # (N, 5)
-        JtJ = J.T @ J + 1e-9 * eye5
-        step = torch.linalg.solve_ex(JtJ, J.T @ r)[0]
+        JtJ, Jtr = matmul(J.T, J), matmul(J.T, r)
+        step = torch.linalg.solve_ex(JtJ + 1e-9 * eye5, Jtr)[0]
         new_params = params - step
         params = torch.where(torch.isfinite(new_params).all(), new_params,
                              params)
@@ -190,14 +200,13 @@ def find_essential_ransac(
         hyp_ok = (e_ok & samp_ok[:, None]).reshape(-1)
     elif solver == "8point":
         w = torch.zeros(idx.shape[0], uv0.shape[0], dtype=torch.float32,
-                        device=dev)
-        w.scatter_(1, idx, 1.0)
+                        device=dev).scatter(1, idx, 1.0)
         Es = _eight_point(x0, x1, w)
         hyp_ok = samp_ok
     else:
         raise ValueError(f"unknown essential solver: {solver!r}")
 
-    Fs = Kinv.T @ Es @ Kinv
+    Fs = matmul(matmul(Kinv.T, Es), Kinv)
     inl_all = (sampson_distance_sq(Fs, uv0, uv1) < threshold_px ** 2) & valid
     scores = inl_all.sum(-1)
     best, _, any_ok = ransac.best_hypothesis(scores, hyp_ok)
@@ -211,14 +220,17 @@ def find_essential_ransac(
                                    inl_all[top_idx])
         votes = torch.where(masked[top_idx] >= 0, votes,
                             torch.full_like(votes, -1))
-        best = top_idx[torch.argmax(votes)]
+        best = top_idx.index_select(0, torch.argmax(votes).view(1))
 
-    inl = inl_all[best]
+    # index_select, not a 0-d index: nothing is read on the host.
+    best = best.view(1)
+    inl = inl_all.index_select(0, best)[0]
     if solver == "5point":
-        E = refine_essential_gn(Es[best], x0, x1, inl.to(torch.float32))
+        E = refine_essential_gn(Es.index_select(0, best)[0], x0, x1,
+                                inl.to(torch.float32))
     else:
         E = _eight_point(x0, x1, inl.to(torch.float32))
-    F = Kinv.T @ E @ Kinv
+    F = matmul(matmul(Kinv.T, E), Kinv)
     inl = (sampson_distance_sq(F, uv0, uv1) < threshold_px ** 2) & valid
     return E, inl, any_ok
 
@@ -232,23 +244,23 @@ def recover_pose(E: torch.Tensor, cam: Camera, uv0: torch.Tensor,
     Returns (R (..., 3, 3), t (..., 3), votes (...))."""
     dev, dt = E.device, E.dtype
     U, _, V = _svd3_rotations(E)
-    Wm = torch.tensor(_W, dtype=dt, device=dev)
+    Wm = constant(_W, dev)
     Vt = V.transpose(-1, -2)
-    Ra = U @ Wm @ Vt
-    Rb = U @ Wm.T @ Vt
+    Ra = matmul(matmul(U, Wm), Vt)
+    Rb = matmul(matmul(U, Wm.T), Vt)
     t = U[..., :, 2]
     Rs = torch.stack([Ra, Ra, Rb, Rb], -3)  # (..., 4, 3, 3)
     ts = torch.stack([t, -t, t, -t], -2)  # (..., 4, 3)
 
     Kmat = cam.matrix(dev)
     N = uv0.shape[0]
-    P0 = Kmat @ torch.eye(3, 4, dtype=dt, device=dev)
-    P1 = Kmat @ torch.cat([Rs, ts[..., None]], -1)  # (..., 4, 3, 4)
+    P0 = matmul(Kmat, torch.eye(3, 4, dtype=dt, device=dev))
+    P1 = matmul(Kmat, torch.cat([Rs, ts[..., None]], -1))  # (..., 4, 3, 4)
     X = triangulate.triangulate_dlt(
         P0.expand(Rs.shape[:-2] + (N, 3, 4)),
         P1[..., None, :, :].expand(Rs.shape[:-2] + (N, 3, 4)), uv0, uv1)
     z0 = X[..., 2]
-    z1 = torch.einsum("...nj,...j->...n", X, Rs[..., 2, :]) + ts[..., 2:3]
+    z1 = einsum("...nj,...j->...n", X, Rs[..., 2, :]) + ts[..., 2:3]
     good = ((z0 > 0) & (z1 > 0) & (z0 < 50.0) & (z1 < 50.0)
             & mask[..., None, :])
     votes = good.sum(-1)  # (..., 4)

@@ -9,7 +9,10 @@ On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/klt_v1.cu``, which replaces the TPU kernel
 ``ops/klt_pallas.py::_klt_kernel``, or raises; on a CPU tensor, and only
 there, it runs ``klt_v1_plain``, a plain PyTorch version of the same function
-batched over features.  ``klt_v1.launches`` counts kernel launches.
+batched over features.  ``klt_v1.launches`` counts kernel launches.  Like
+``klt_pallas2.klt_lk`` it takes one problem or a batch of B in one launch,
+through the custom op ``mvo::klt_v1`` whose vmap rule (``fold_vmap``) folds
+a ``torch.func.vmap``'s batch into the launch's.
 
 What v1 computes per feature, in the reference's float32 order: a 48x256
 slab of the edge-padded planes (PAD=16) whose base is 8-row / 128-lane
@@ -143,12 +146,12 @@ def sample_map_onehot(fmap: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def _ring(idx, ring):
     """Indices read circularly within a per-feature block: ``ring`` = (base
-    (N,), period) maps ``idx`` to base + (idx - base) mod period; None keeps
-    them."""
+    (..., N), period) maps ``idx`` to base + (idx - base) mod period; None
+    keeps them."""
     if ring is None:
         return idx
     base, period = ring
-    base = base.to(torch.int64)[:, None]
+    base = base.to(torch.int64)[..., None]
     return base + torch.remainder(idx - base, period)
 
 
@@ -160,17 +163,21 @@ def sample_patches(img, oy, ox, fy, fx, n, row_ring=None, col_ring=None):
     that the reads wrap around in, as a reference kernel's circular roll of
     its slab does (``_ring``); the wrapped index is then clamped.
 
-    (N,) origins and weights -> (N, n, n), in the reference's operation
-    order."""
-    H, W = img.shape
+    (..., N) origins and weights on (..., H, W) planes -> (..., N, n, n), in
+    the reference's operation order: one problem, or a batch of them on a
+    leading axis."""
+    H, W = img.shape[-2:]
     ar = torch.arange(n + 1, device=img.device)
-    rows = _ring(oy.to(torch.int64)[:, None] + ar, row_ring).clamp(0, H - 1)
-    cols = _ring(ox.to(torch.int64)[:, None] + ar, col_ring).clamp(0, W - 1)
-    P = img[rows[:, :, None], cols[:, None, :]]  # (N, n+1, n+1)
-    t, t01 = P[:, :-1, :-1], P[:, :-1, 1:]
-    t10, t11 = P[:, 1:, :-1], P[:, 1:, 1:]
-    fx = fx[:, None, None]
-    fy = fy[:, None, None]
+    rows = _ring(oy.to(torch.int64)[..., None] + ar, row_ring).clamp(0, H - 1)
+    cols = _ring(ox.to(torch.int64)[..., None] + ar, col_ring).clamp(0, W - 1)
+    at = rows[..., :, None] * W + cols[..., None, :]  # (..., N, n+1, n+1)
+    lead = at.shape[:-3]
+    P = torch.gather(img.reshape(lead + (H * W,)), -1,
+                     at.reshape(lead + (-1,))).reshape(at.shape)
+    t, t01 = P[..., :-1, :-1], P[..., :-1, 1:]
+    t10, t11 = P[..., 1:, :-1], P[..., 1:, 1:]
+    fx = fx[..., None, None]
+    fy = fy[..., None, None]
     return (t * (1 - fx) * (1 - fy) + t01 * fx * (1 - fy)
             + t10 * (1 - fx) * fy + t11 * fx * fy)
 
@@ -194,9 +201,9 @@ def slab_geometry(meta: torch.Tensor, H: int, W: int):
     """Per feature: the slab base (y0, x0) in padded coordinates and the
     template's slab-relative origin (yi, xi) after the clip, with ``sub =
     yi % 8`` the row offset whose value 0 exposes the reference's template
-    row wrap.  Returns (y0, x0, yi, xi), int64 (N,)."""
+    row wrap.  Returns (y0, x0, yi, xi), int64 (..., N)."""
     Hp, Wp = padded_shape(H, W)
-    py, px, qy, qx = meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3]
+    py, px, qy, qx = meta[..., 0], meta[..., 1], meta[..., 2], meta[..., 3]
     y0 = (torch.div(_floor_int(torch.minimum(py, qy)) + SLAB_PAD - 12, 8,
                     rounding_mode="floor") * 8).clamp(0, Hp - ROWS)
     x0 = (torch.div(_floor_int(torch.minimum(px, qx)) + SLAB_PAD - 96, 128,
@@ -217,10 +224,11 @@ def _register(s: torch.Tensor, base: torch.Tensor, hi: int):
 
 def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
                  max_residual):
-    """Plain PyTorch version of the kernel: same inputs, same (N, 5)
-    output."""
-    H, W = tmpl.shape
-    py, px, qy, qx, vf = meta.unbind(1)
+    """Plain PyTorch version of the kernel: same inputs, same output, for
+    one problem or a batch on a leading axis ((B, H, W) planes, (B, N, 5)
+    meta -> (B, N, 5)); each problem of a batch rounds as it does alone."""
+    H, W = tmpl.shape[-2:]
+    py, px, qy, qx, vf = meta.unbind(-1)
     y0, x0, yi, _ = slab_geometry(meta, H, W)
     y0f = y0.to(torch.float32) - SLAB_PAD
     x0f = x0.to(torch.float32) - SLAB_PAD
@@ -242,12 +250,12 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
     Tb = sample_patches(tmpl, oy - 1, ox - 1, fy, fx, WIN + 2,
                         row_ring=(rows8, TEMPLATE_ROWS),
                         col_ring=(x0 - SLAB_PAD, LANES))
-    WT = Tb[:, 1:-1, 1:-1]
-    Ix = 0.5 * (Tb[:, 1:-1, 2:] - Tb[:, 1:-1, :-2])
-    Iy = 0.5 * (Tb[:, 2:, 1:-1] - Tb[:, :-2, 1:-1])
-    gxx = (Ix * Ix).sum((1, 2))
-    gxy = (Ix * Iy).sum((1, 2))
-    gyy = (Iy * Iy).sum((1, 2))
+    WT = Tb[..., 1:-1, 1:-1]
+    Ix = 0.5 * (Tb[..., 1:-1, 2:] - Tb[..., 1:-1, :-2])
+    Iy = 0.5 * (Tb[..., 2:, 1:-1] - Tb[..., :-2, 1:-1])
+    gxx = (Ix * Ix).sum((-2, -1))
+    gxy = (Ix * Iy).sum((-2, -1))
+    gyy = (Iy * Iy).sum((-2, -1))
     det = gxx * gyy - gxy * gxy
     tr = gxx + gyy
     min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4.0 * det,
@@ -264,11 +272,12 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
 
     gx = torch.zeros_like(qx)
     gy = torch.zeros_like(qy)
-    frozen = torch.zeros(meta.shape[0], dtype=torch.bool, device=meta.device)
+    frozen = torch.zeros(meta.shape[:-1], dtype=torch.bool,
+                         device=meta.device)
     for _ in range(num_iters):
         diff = search(gy, gx)[0] - WT
-        b0 = (diff * Ix).sum((1, 2))
-        b1 = (diff * Iy).sum((1, 2))
+        b0 = (diff * Ix).sum((-2, -1))
+        b1 = (diff * Iy).sum((-2, -1))
         d0 = -(gyy * b0 - gxy * b1) * inv_det
         d1 = -(-gxy * b0 + gxx * b1) * inv_det
         gx = torch.where(frozen, gx, gx + d0)
@@ -276,7 +285,7 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
         frozen = frozen | ((d0 * d0 + d1 * d1) < eps * eps)
 
     cur, sy, sx = search(gy, gx)
-    resid = (cur - WT).abs().sum((1, 2)) / (WIN * WIN)
+    resid = (cur - WT).abs().sum((-2, -1)) / (WIN * WIN)
     new_x = qx + gx
     new_y = qy + gy
     inb = ((new_x >= R) & (new_x <= W - 1 - R)
@@ -286,37 +295,98 @@ def klt_v1_plain(tmpl, srch, meta, *, num_iters, eps, min_eig_threshold,
     eig_ok = (min_eig / (WIN * WIN)) > min_eig_threshold
     ok = inb & in_slab & eig_ok & (resid < max_residual) & (vf > 0.5)
     return torch.stack([new_x, new_y, ok.to(torch.float32), resid, min_eig],
-                       1)
+                       -1)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# klt_v1_launch(tmpl, srch, H, W, Hp, Wp, meta, n, num_iters, eps2,
+# klt_v1_launch(tmpl, srch, B, H, W, Hp, Wp, meta, n, num_iters, eps2,
 #               min_eig_thr, max_resid, out, stream)
-LAUNCH_ARGTYPES = (_P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P)
+LAUNCH_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P,
+                   _P)
 
 
 def _entry():
     return _build.entry("klt_v1", LAUNCH_ARGTYPES)
 
 
+def fold_vmap(op, info, in_dims, tensors, scalars):
+    """The vmap rule of a kernel op whose tensors carry a leading batch axis
+    (``mvo::klt_v1``, ``mvo::klt_lk``): each tensor's vmapped dimension (an
+    unbatched tensor expanded) is folded into that axis, so the whole batch
+    is ONE call of the op, one launch on the card.  Returns (output, 0)."""
+    S = info.batch_size
+    lead = [t.movedim(d, 0) if d is not None else t.expand(S, *t.shape)
+            for t, d in zip(tensors, in_dims)]
+    B = lead[0].shape[1]
+    out = op(*(t.reshape(S * B, *t.shape[2:]).contiguous() for t in lead),
+             *scalars)
+    return out.view(S, B, *out.shape[1:]), 0
+
+
+@torch.library.custom_op("mvo::klt_v1", mutates_args=())
+def _klt_v1_op(tmpl: torch.Tensor, srch: torch.Tensor, meta: torch.Tensor,
+               num_iters: int, eps: float, min_eig_threshold: float,
+               max_residual: float) -> torch.Tensor:
+    """(B, H, W) planes, (B, N, 5) meta -> (B, N, 5): one launch of the
+    kernel on CUDA tensors, the plain version on CPU ones."""
+    if tmpl.device.type == "cpu":
+        return klt_v1_plain(tmpl, srch, meta, num_iters=num_iters, eps=eps,
+                            min_eig_threshold=min_eig_threshold,
+                            max_residual=max_residual)
+    if tmpl.device.type != "cuda":
+        raise ValueError(
+            f"klt_v1 runs on CUDA or CPU tensors; got {tmpl.device}")
+    for name, t in (("tmpl", tmpl), ("srch", srch), ("meta", meta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, H, W = tmpl.shape
+    N = meta.shape[1]
+    Hp, Wp = padded_shape(H, W)
+    out = torch.empty((B, N, OUT_COLS), dtype=torch.float32,
+                      device=tmpl.device)
+    with torch.cuda.device(tmpl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), B, H, W, Hp, Wp,
+                       meta.data_ptr(), N, num_iters, eps * eps,
+                       min_eig_threshold, max_residual, out.data_ptr(), stream)
+    klt_v1.launches += 1
+    if err != 0:
+        raise RuntimeError(f"klt_v1 kernel launch failed: CUDA error {err}")
+    return out
+
+
+@_klt_v1_op.register_fake
+def _(tmpl, srch, meta, *scalars):
+    return meta.new_empty(meta.shape[:-1] + (OUT_COLS,))
+
+
+@_klt_v1_op.register_vmap
+def _(info, in_dims, tmpl, srch, meta, *scalars):
+    return fold_vmap(_klt_v1_op, info, in_dims, (tmpl, srch, meta), scalars)
+
+
 def klt_v1(tmpl: torch.Tensor, srch: torch.Tensor, meta: torch.Tensor, *,
            num_iters: int, eps: float, min_eig_threshold: float,
            max_residual: float) -> torch.Tensor:
-    """v1 LK for N features: template plane ``tmpl``, search plane ``srch``.
+    """v1 LK for N features: template plane ``tmpl``, search plane ``srch``;
+    or for a batch of B such problems in one launch.
 
     Args:
-      tmpl, srch: (H, W) float32 contiguous planes on one device.
+      tmpl, srch: (H, W) float32 planes on one device, or (B, H, W).
       meta: (N, 5) float32 [py, px, qy, qx, valid]: template position,
-        predicted position in the search plane, valid flag (> 0.5).  N must
-        be a multiple of 8 (the reference silently drops the remainder).
+        predicted position in the search plane, valid flag (> 0.5); (B, N,
+        5) for a batch.  N must be a multiple of 8 (the reference silently
+        drops the remainder).
 
-    Returns (N, 5) float32 [x, y, ok, resid, min_eig]."""
-    if tmpl.dim() != 2 or srch.shape != tmpl.shape:
-        raise ValueError(f"planes must be (H, W) of one shape; got "
-                         f"{tuple(tmpl.shape)} and {tuple(srch.shape)}")
-    N = meta.shape[0]
-    if meta.shape != (N, META_COLS):
-        raise ValueError(f"meta must be (N, {META_COLS}); got "
+    Returns (N, 5) float32 [x, y, ok, resid, min_eig], or (B, N, 5).  Under
+    ``torch.func.vmap`` the vmap's batch joins the launch's."""
+    if tmpl.dim() not in (2, 3) or srch.shape != tmpl.shape:
+        raise ValueError(f"planes must be (H, W) or (B, H, W) of one shape; "
+                         f"got {tuple(tmpl.shape)} and {tuple(srch.shape)}")
+    lead = tuple(tmpl.shape[:-2])
+    N = meta.shape[-2] if meta.dim() == len(lead) + 2 else -1
+    if meta.shape != lead + (N, META_COLS):
+        raise ValueError(f"meta must be {lead + ('N', META_COLS)}; got "
                          f"{tuple(meta.shape)}")
     if N % BF:
         raise ValueError(f"the v1 tracker takes N % {BF} == 0 features; got "
@@ -326,30 +396,16 @@ def klt_v1(tmpl: torch.Tensor, srch: torch.Tensor, meta: torch.Tensor, *,
             raise TypeError(f"{name} must be float32; got {t.dtype}")
         if t.device != tmpl.device:
             raise ValueError(f"{name} is on {t.device}, tmpl on {tmpl.device}")
-    if num_iters < 0:
-        raise ValueError(f"num_iters must be >= 0; got {num_iters}")
-    kw = dict(num_iters=num_iters, eps=eps,
-              min_eig_threshold=min_eig_threshold, max_residual=max_residual)
-    if tmpl.device.type == "cpu":
-        return klt_v1_plain(tmpl, srch, meta, **kw)
-    if tmpl.device.type != "cuda":
+    if tmpl.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"klt_v1 runs on CUDA or CPU tensors; got {tmpl.device}")
-    for name, t in (("tmpl", tmpl), ("srch", srch), ("meta", meta)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    H, W = tmpl.shape
-    Hp, Wp = padded_shape(H, W)
-    out = torch.empty((N, OUT_COLS), dtype=torch.float32, device=tmpl.device)
-    with torch.cuda.device(tmpl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), H, W, Hp, Wp,
-                       meta.data_ptr(), N, num_iters, eps * eps,
-                       min_eig_threshold, max_residual, out.data_ptr(), stream)
-    klt_v1.launches += 1
-    if err != 0:
-        raise RuntimeError(f"klt_v1 kernel launch failed: CUDA error {err}")
-    return out
+    if num_iters < 0:
+        raise ValueError(f"num_iters must be >= 0; got {num_iters}")
+    # Contiguity is checked where the kernel launches (a copy here would
+    # hide a caller's layout); under vmap the op's rule lays the batch out.
+    args = [t if lead else t[None] for t in (tmpl, srch, meta)]
+    out = _klt_v1_op(*args, num_iters, eps, min_eig_threshold, max_residual)
+    return out if lead else out[0]
 
 
 klt_v1.launches = 0

@@ -5,7 +5,12 @@
 hand-written Hopper kernel ``csrc/klt_lk.cu`` (which replaces the TPU kernel
 ``ops/klt_pallas2.py::_klt2_kernel``) or raises; on a CPU tensor, and only
 there, it runs ``klt_lk_plain``, a plain PyTorch version of the same function
-batched over features.  ``klt_lk.launches`` counts kernel launches.
+batched over features.  ``klt_lk.launches`` counts kernel launches.  It takes
+one problem or a batch of B (planes (B, H, W)) in one launch, through the
+custom op ``mvo::klt_lk``, whose vmap rule folds a ``torch.func.vmap``'s
+batch into the launch's: the batched step (``pipeline/vo.py``) launches the
+kernel once for all its sequences, as the TPU kernel gets one more grid
+axis under ``jax.vmap``.
 
 ``track_features_pallas2`` keeps the JAX wrapper's signature (minus
 ``interpret``) and semantics: NaN sanitising, the clip to [-8, W+8], the
@@ -46,17 +51,20 @@ OUT_COLS = 5  # [gx, gy, ok, resid, min_eig]
 
 def klt_lk_plain(tmpl, srch, feat, valid, *, win, num_iters, eps,
                  min_eig_threshold, max_residual):
-    """Plain PyTorch twin of the kernel: same inputs, same (N, 5) output."""
-    tx, ty, phx, phy, qx, qy, gx, gy = feat.unbind(1)
+    """Plain PyTorch twin of the kernel: same inputs, same output, for one
+    problem or a batch on a leading axis ((B, H, W) planes, (B, N, 8)
+    features -> (B, N, 5)); each problem of a batch rounds as it does
+    alone."""
+    tx, ty, phx, phy, qx, qy, gx, gy = feat.unbind(-1)
     # Template on a (win+2)^2 grid: the window plus the one-pixel ring the
     # central differences need.
     Tb = v1.sample_patches(tmpl, ty - 1, tx - 1, phy, phx, win + 2)
-    WT = Tb[:, 1:-1, 1:-1]
-    Ix = 0.5 * (Tb[:, 1:-1, 2:] - Tb[:, 1:-1, :-2])
-    Iy = 0.5 * (Tb[:, 2:, 1:-1] - Tb[:, :-2, 1:-1])
-    gxx = (Ix * Ix).sum((1, 2))
-    gxy = (Ix * Iy).sum((1, 2))
-    gyy = (Iy * Iy).sum((1, 2))
+    WT = Tb[..., 1:-1, 1:-1]
+    Ix = 0.5 * (Tb[..., 1:-1, 2:] - Tb[..., 1:-1, :-2])
+    Iy = 0.5 * (Tb[..., 2:, 1:-1] - Tb[..., :-2, 1:-1])
+    gxx = (Ix * Ix).sum((-2, -1))
+    gxy = (Ix * Iy).sum((-2, -1))
+    gyy = (Iy * Iy).sum((-2, -1))
     det = gxx * gyy - gxy * gxy
     tr = gxx + gyy
     min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4.0 * det,
@@ -72,51 +80,101 @@ def klt_lk_plain(tmpl, srch, feat, valid, *, win, num_iters, eps,
     frozen = torch.zeros_like(valid)
     for _ in range(num_iters):
         diff = sample_window(gy, gx) - WT
-        b0 = (diff * Ix).sum((1, 2))
-        b1 = (diff * Iy).sum((1, 2))
+        b0 = (diff * Ix).sum((-2, -1))
+        b1 = (diff * Iy).sum((-2, -1))
         d0 = -(gyy * b0 - gxy * b1) * inv_det
         d1 = -(-gxy * b0 + gxx * b1) * inv_det
         gx = torch.where(frozen, gx, gx + d0)
         gy = torch.where(frozen, gy, gy + d1)
         frozen = frozen | ((d0 * d0 + d1 * d1) < eps * eps)
 
-    resid = (sample_window(gy, gx) - WT).abs().sum((1, 2)) / (win * win)
+    resid = (sample_window(gy, gx) - WT).abs().sum((-2, -1)) / (win * win)
     drift_ok = (gx > -7.99) & (gx < 7.99) & (gy > -7.99) & (gy < 7.99)
     eig_ok = (min_eig / (win * win)) > min_eig_threshold
     ok = drift_ok & eig_ok & (resid < max_residual) & valid
-    return torch.stack([gx, gy, ok.to(torch.float32), resid, min_eig], 1)
+    return torch.stack([gx, gy, ok.to(torch.float32), resid, min_eig], -1)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# klt_lk_launch(tmpl, srch, H, W, feat, valid, n, win, num_iters, eps2,
+# klt_lk_launch(tmpl, srch, B, H, W, feat, valid, n, win, num_iters, eps2,
 #               min_eig_thr, max_resid, out, stream)
-LAUNCH_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P)
+LAUNCH_ARGTYPES = (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _P,
+                   _P)
 
 
 def _entry():
     return _build.entry("klt_lk", LAUNCH_ARGTYPES)
 
 
+@torch.library.custom_op("mvo::klt_lk", mutates_args=())
+def _klt_lk_op(tmpl: torch.Tensor, srch: torch.Tensor, feat: torch.Tensor,
+               valid: torch.Tensor, win: int, num_iters: int, eps: float,
+               min_eig_threshold: float,
+               max_residual: float) -> torch.Tensor:
+    """(B, H, W) planes, (B, N, 8) features, (B, N) flags -> (B, N, 5): one
+    launch of the kernel on CUDA tensors, the plain version on CPU ones."""
+    if tmpl.device.type == "cpu":
+        return klt_lk_plain(tmpl, srch, feat, valid, win=win,
+                            num_iters=num_iters, eps=eps,
+                            min_eig_threshold=min_eig_threshold,
+                            max_residual=max_residual)
+    if tmpl.device.type != "cuda":
+        raise ValueError(f"klt_lk runs on CUDA or CPU tensors; got {tmpl.device}")
+    for name, t in (("tmpl", tmpl), ("srch", srch), ("feat", feat),
+                    ("valid", valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, H, W = tmpl.shape
+    N = feat.shape[1]
+    out = torch.empty((B, N, OUT_COLS), dtype=torch.float32,
+                      device=tmpl.device)
+    with torch.cuda.device(tmpl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), B, H, W,
+                       feat.data_ptr(), valid.data_ptr(), N, win, num_iters,
+                       eps * eps, min_eig_threshold, max_residual,
+                       out.data_ptr(), stream)
+    klt_lk.launches += 1
+    if err != 0:
+        raise RuntimeError(f"klt_lk kernel launch failed: CUDA error {err}")
+    return out
+
+
+@_klt_lk_op.register_fake
+def _(tmpl, srch, feat, valid, *scalars):
+    return feat.new_empty(feat.shape[:-1] + (OUT_COLS,))
+
+
+@_klt_lk_op.register_vmap
+def _(info, in_dims, tmpl, srch, feat, valid, *scalars):
+    return v1.fold_vmap(_klt_lk_op, info, in_dims, (tmpl, srch, feat, valid),
+                        scalars)
+
+
 def klt_lk(tmpl: torch.Tensor, srch: torch.Tensor, feat: torch.Tensor,
            valid: torch.Tensor, *, win: int, num_iters: int, eps: float,
            min_eig_threshold: float, max_residual: float) -> torch.Tensor:
-    """LK for N features: template plane ``tmpl``, search plane ``srch``.
+    """LK for N features: template plane ``tmpl``, search plane ``srch``;
+    or for a batch of B such problems in one launch.
 
     Args:
-      tmpl, srch: (H, W) float32 contiguous planes on one device.
+      tmpl, srch: (H, W) float32 planes on one device, or (B, H, W).
       feat: (N, 8) float32 [tx, ty, fx, fy, qx, qy, gx0, gy0] - integer
         template origin (window top-left) and phase, integer search origin
-        and initial offset.
-      valid: (N,) bool.
+        and initial offset; (B, N, 8) for a batch.
+      valid: (N,) bool, or (B, N).
 
-    Returns (N, 5) float32 [gx, gy, ok, resid, min_eig]."""
-    if tmpl.dim() != 2 or srch.shape != tmpl.shape:
-        raise ValueError(f"planes must be (H, W) of one shape; got "
-                         f"{tuple(tmpl.shape)} and {tuple(srch.shape)}")
-    N = feat.shape[0]
-    if feat.shape != (N, FEAT_COLS) or valid.shape != (N,):
-        raise ValueError(f"feat must be (N, {FEAT_COLS}) and valid (N,); got "
-                         f"{tuple(feat.shape)} and {tuple(valid.shape)}")
+    Returns (N, 5) float32 [gx, gy, ok, resid, min_eig], or (B, N, 5).
+    Under ``torch.func.vmap`` the vmap's batch joins the launch's."""
+    if tmpl.dim() not in (2, 3) or srch.shape != tmpl.shape:
+        raise ValueError(f"planes must be (H, W) or (B, H, W) of one shape; "
+                         f"got {tuple(tmpl.shape)} and {tuple(srch.shape)}")
+    lead = tuple(tmpl.shape[:-2])
+    N = feat.shape[-2] if feat.dim() == len(lead) + 2 else -1
+    if feat.shape != lead + (N, FEAT_COLS) or valid.shape != lead + (N,):
+        raise ValueError(f"feat must be {lead + ('N', FEAT_COLS)} and valid "
+                         f"{lead + ('N',)}; got {tuple(feat.shape)} and "
+                         f"{tuple(valid.shape)}")
     for name, t, dt in (("tmpl", tmpl, torch.float32),
                         ("srch", srch, torch.float32),
                         ("feat", feat, torch.float32),
@@ -125,31 +183,18 @@ def klt_lk(tmpl: torch.Tensor, srch: torch.Tensor, feat: torch.Tensor,
             raise TypeError(f"{name} must be {dt}; got {t.dtype}")
         if t.device != tmpl.device:
             raise ValueError(f"{name} is on {t.device}, tmpl on {tmpl.device}")
+    if tmpl.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"klt_lk runs on CUDA or CPU tensors; got {tmpl.device}")
     if win % 2 == 0 or not 5 <= win <= 15:
         raise ValueError(f"win must be odd and in [5, 15]; got {win}")
     if not 0 <= num_iters <= 8:
         raise ValueError(f"num_iters must be in [0, 8]; got {num_iters}")
-    kw = dict(win=win, num_iters=num_iters, eps=eps,
-              min_eig_threshold=min_eig_threshold, max_residual=max_residual)
-    if tmpl.device.type == "cpu":
-        return klt_lk_plain(tmpl, srch, feat, valid, **kw)
-    if tmpl.device.type != "cuda":
-        raise ValueError(f"klt_lk runs on CUDA or CPU tensors; got {tmpl.device}")
-    for name, t in (("tmpl", tmpl), ("srch", srch), ("feat", feat),
-                    ("valid", valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    H, W = tmpl.shape
-    out = torch.empty((N, OUT_COLS), dtype=torch.float32, device=tmpl.device)
-    with torch.cuda.device(tmpl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(tmpl.data_ptr(), srch.data_ptr(), H, W, feat.data_ptr(),
-                       valid.data_ptr(), N, win, num_iters, eps * eps,
-                       min_eig_threshold, max_residual, out.data_ptr(), stream)
-    klt_lk.launches += 1
-    if err != 0:
-        raise RuntimeError(f"klt_lk kernel launch failed: CUDA error {err}")
-    return out
+    # Contiguity is checked where the kernel launches (a copy here would
+    # hide a caller's layout); under vmap the op's rule lays the batch out.
+    args = [t if lead else t[None] for t in (tmpl, srch, feat, valid)]
+    out = _klt_lk_op(*args, win, num_iters, eps, min_eig_threshold,
+                     max_residual)
+    return out if lead else out[0]
 
 
 klt_lk.launches = 0

@@ -97,11 +97,8 @@ def _p3p_grunert(X: torch.Tensor, rays: torch.Tensor):
 
     Y = s[..., :, None] * rays[:, None]  # (B, 4, 3, 3) camera-frame points
     R, t = _rigid_from_3pts(X[:, None].expand_as(Y), Y)
-    T = torch.eye(4, dtype=X.dtype, device=X.device).repeat(
-        R.shape[:-2] + (1, 1))
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    return T, ok & is_real
+    # Built out of place, so the body runs under torch.func.vmap.
+    return lie.rt_to_matrix(R, t), ok & is_real
 
 
 def _rigid_from_3pts(X: torch.Tensor, Y: torch.Tensor):
@@ -121,8 +118,8 @@ def _rigid_from_3pts(X: torch.Tensor, Y: torch.Tensor):
 
     Fx = frame(X)
     Fy = frame(Y)
-    R = Fy @ Fx.transpose(-1, -2)
-    t = Y[..., 0, :] - torch.einsum("...ij,...j->...i", R, X[..., 0, :])
+    R = linalg.matmul(Fy, Fx.transpose(-1, -2))
+    t = Y[..., 0, :] - linalg.einsum("...ij,...j->...i", R, X[..., 0, :])
     return R, t
 
 
@@ -145,7 +142,7 @@ def refine_pose_gn(T_CW: torch.Tensor, cam: Camera, X: torch.Tensor,
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
     T = T_CW
     for _ in range(iters):
-        Xc = X @ T[:3, :3].T + T[:3, 3]
+        Xc = linalg.matmul(X, T[:3, :3].T) + T[:3, 3]
         x, y, z = Xc[:, 0], Xc[:, 1], Xc[:, 2]
         z = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
         iz = 1.0 / z
@@ -159,15 +156,15 @@ def refine_pose_gn(T_CW: torch.Tensor, cam: Camera, X: torch.Tensor,
         ], 1)  # (N, 2, 3)
         hatX = lie.hat(Xc)
         Jx = torch.cat([eye3.expand_as(hatX), -hatX], -1)  # (N, 3, 6)
-        J = Jp @ Jx
+        J = linalg.matmul(Jp, Jx)
         r = torch.stack([u_err, v_err], 1)
         Jw = J * w[:, None, None]
-        H = torch.einsum("nij,nik->jk", Jw, J) + 1e-6 * eye6
-        g = torch.einsum("nij,ni->j", Jw, r)
-        # solve_ex: a singular system gives non-finite values, as in the
-        # reference, instead of raising.
-        xi = -torch.linalg.solve_ex(H, g)[0]
-        T = lie.se3_exp(xi) @ T
+        H = linalg.einsum("nij,nik->jk", Jw, J) + 1e-6 * eye6
+        g = linalg.einsum("nij,ni->j", Jw, r)
+        # A singular system gives non-finite values, as in the reference,
+        # instead of raising.
+        xi = -linalg.solve(H, g)
+        T = linalg.matmul(lie.se3_exp(xi), T)
     return T
 
 

@@ -2,10 +2,16 @@
 ``ops/polysolve.py``): Cardano / trigonometric cubic, Ferrari quartic with
 hand-rolled complex arithmetic on (re, im) pairs, two Newton polishes.
 Elementwise over any batch shape.
+
+The complex square root and the cube root are ``core.linalg``'s
+``csqrt`` and ``cbrt``: their batch-invariant forms give each problem of a
+batch what it gets alone (``torch.func.vmap``).
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.linalg import cbrt, csqrt
 
 _EPS = 1e-12
 
@@ -19,19 +25,6 @@ def _cdiv(ar, ai, br, bi):
     return (ar * br + ai * bi) / d, (ai * br - ar * bi) / d
 
 
-def _csqrt(ar, ai):
-    """Principal complex square root via polar form."""
-    r = torch.sqrt(ar * ar + ai * ai)
-    theta = torch.atan2(ai, ar) * 0.5
-    s = torch.sqrt(r)
-    return s * torch.cos(theta), s * torch.sin(theta)
-
-
-def _cbrt(x):
-    """Real cube root (torch has no cbrt)."""
-    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
-
-
 def cubic_real_root(a2, a1, a0):
     """One real root of ``t^3 + a2 t^2 + a1 t + a0``."""
     p = a1 - a2 * a2 / 3.0
@@ -40,7 +33,7 @@ def cubic_real_root(a2, a1, a0):
     disc = (q * q) / 4.0 + (p ** 3) / 27.0
 
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    root_cardano = _cbrt(-q / 2.0 + sq) + _cbrt(-q / 2.0 - sq)
+    root_cardano = cbrt(-q / 2.0 + sq) + cbrt(-q / 2.0 - sq)
 
     p_safe = torch.clamp(p, max=-_EPS)
     m = 2.0 * torch.sqrt(-p_safe / 3.0)
@@ -59,7 +52,7 @@ def quartic_roots(a3, a2, a1, a0, real_tol: float = 1e-4):
     r = a0 - a3 * a1 / 4.0 + a3 * a3 * a2 / 16.0 - 3.0 * a3 ** 4 / 256.0
 
     m = cubic_real_root(p, (p * p - 4.0 * r) / 4.0, -q * q / 8.0)
-    ar, ai = _csqrt(2.0 * m, torch.zeros_like(m))
+    ar, ai = csqrt(2.0 * m, torch.zeros_like(m))
     br, bi = _cdiv(q, torch.zeros_like(q), 2.0 * ar, 2.0 * ai)
     half_p_m = p / 2.0 + m
 
@@ -67,7 +60,7 @@ def quartic_roots(a3, a2, a1, a0, real_tol: float = 1e-4):
         dr, di = _cmul(Br, Bi, Br, Bi)
         dr = dr - 4.0 * Cr
         di = di - 4.0 * Ci
-        sr, si = _csqrt(dr, di)
+        sr, si = csqrt(dr, di)
         return ((-Br + sr) / 2.0, (-Bi + si) / 2.0), (
             (-Br - sr) / 2.0, (-Bi - si) / 2.0)
 
@@ -76,11 +69,11 @@ def quartic_roots(a3, a2, a1, a0, real_tol: float = 1e-4):
 
     # Biquadratic fallback when alpha ~ 0 (q ~ 0).
     alpha_small = (ar * ar + ai * ai) < 1e-10
-    s2r, s2i = _csqrt(p * p - 4.0 * r, torch.zeros_like(p))
+    s2r, s2i = csqrt(p * p - 4.0 * r, torch.zeros_like(p))
     z1r, z1i = (-p + s2r) / 2.0, s2i / 2.0
     z2r, z2i = (-p - s2r) / 2.0, -s2i / 2.0
-    b1r, b1i = _csqrt(z1r, z1i)
-    b2r, b2i = _csqrt(z2r, z2i)
+    b1r, b1i = csqrt(z1r, z1i)
+    b2r, b2i = csqrt(z2r, z2i)
     y1r = torch.where(alpha_small, b1r, y1r)
     y1i = torch.where(alpha_small, b1i, y1i)
     y2r = torch.where(alpha_small, -b1r, y2r)

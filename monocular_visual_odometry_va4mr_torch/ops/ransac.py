@@ -69,4 +69,6 @@ def best_hypothesis(scores: torch.Tensor, ok: torch.Tensor):
     Returns (index, score, any_ok)."""
     masked = torch.where(ok, scores, torch.full_like(scores, -1))
     i = torch.argmax(masked)
-    return i, masked[i], masked[i] >= 0
+    # A gather, not a 0-d index: nothing is read on the host.
+    best = masked.gather(0, i.view(1))[0]
+    return i, best, best >= 0

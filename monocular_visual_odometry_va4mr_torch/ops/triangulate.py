@@ -27,8 +27,8 @@ def triangulate_dlt(P0: torch.Tensor, P1: torch.Tensor, uv0: torch.Tensor,
     rows = rows / torch.clamp(norm, min=1e-12)
     M = rows[..., :3]
     a = rows[..., 3]
-    N = torch.einsum("...ki,...kj->...ij", M, M)
-    b = -torch.einsum("...ki,...k->...i", M, a)
+    N = linalg.einsum("...ki,...kj->...ij", M, M)
+    b = -linalg.einsum("...ki,...k->...i", M, a)
     return linalg.solve3(N, b)
 
 
@@ -37,8 +37,8 @@ def bearing_angle_deg(cam: Camera, uv0, uv1, R0_CW, R1_CW) -> torch.Tensor:
     frame: d_i = R_i_CW^T K^-1 hom(uv_i).  R0_CW (..., 3, 3), R1_CW (3, 3)."""
     r0 = cam.backproject(uv0)
     r1 = cam.backproject(uv1)
-    d0 = torch.einsum("...ji,...j->...i", R0_CW, r0)
-    d1 = torch.einsum("ji,...j->...i", R1_CW, r1)
+    d0 = linalg.einsum("...ji,...j->...i", R0_CW, r0)
+    d1 = linalg.einsum("ji,...j->...i", R1_CW, r1)
     cos = torch.sum(d0 * d1, -1) / (
         torch.linalg.vector_norm(d0, dim=-1)
         * torch.linalg.vector_norm(d1, dim=-1) + 1e-12)
@@ -48,8 +48,8 @@ def bearing_angle_deg(cam: Camera, uv0, uv1, R0_CW, R1_CW) -> torch.Tensor:
 def depth_gate(X, T0_CW, T1_CW, min_dist: float,
                max_dist: float) -> torch.Tensor:
     """z in (min_dist, max_dist) in both camera frames."""
-    z0 = torch.einsum("...j,...j->...", T0_CW[..., 2, :3], X) + T0_CW[..., 2, 3]
-    z1 = X @ T1_CW[2, :3] + T1_CW[2, 3]
+    z0 = linalg.einsum("...j,...j->...", T0_CW[..., 2, :3], X) + T0_CW[..., 2, 3]
+    z1 = linalg.matmul(X, T1_CW[2, :3]) + T1_CW[2, 3]
     return (z0 > min_dist) & (z0 < max_dist) & (z1 > min_dist) & (z1 < max_dist)
 
 

@@ -1,20 +1,22 @@
 """Run many sequences in data-parallel lockstep over mesh slots (port of
 ``parallel/multi_seq.py``).
 
-Each slot owns one sequence; every frame steps all slots in turn
-(``seq_dp.batched_step``), with zero collectives.  Slots on one card share
-one ``VisualOdometry`` and so one captured step (``pipeline/vo.py``): each
-slot's state goes through the graph's static buffers, one copy of the
-packed state a step, where a graph per slot would multiply the memory
-pool (one step's intermediates, ~0.4 GB at 376x1241) and the captures by
-the number of slots.
+Each slot owns one sequence; every frame steps the slots of each device as
+one batch (``seq_dp.batched_step``: the step's body under
+``torch.func.vmap``, one replay of the captured batched step a frame on a
+card), with zero collectives, and reads the frame's poses, inlier counts and
+statuses back in one copy per device (the batch's packed ``frame_outputs``
+rows).  The bootstraps run per sequence, as the reference's do.
 
 Random draws: sequence ``s`` of a run seeded ``seed`` draws exactly as a
 solo ``runner.run_sequence(seed=sequence_seed(seed, s))`` does: its
 bootstrap from ``frame_generator(sequence_seed(seed, s), 0)`` and the step of
-frame ``f`` from ``frame_generator(sequence_seed(seed, s), f)``.  So a
-lockstep run equals solo runs of the same sequences (solo runs whose
-recovery never fires).  ``sequence_seed`` mixes the pair (seed, s) as
+frame ``f`` from ``frame_generator(sequence_seed(seed, s), f)``.  So sequence
+``s`` computes, bit for bit, what it computes in a batch of one with those
+draws, whatever its batch-mates; on the CPU that is also its solo run (one
+whose recovery never fires), while on the card a solo step takes the
+libraries' arithmetic and the batch its batch-invariant form
+(``pipeline/vo.py``).  ``sequence_seed`` mixes the pair (seed, s) as
 ``runner.frame_seed`` does, so runs never share a sequence's draws by
 pattern: with fewer than 256 sequences, two runs whose seeds differ by less
 than 1_302_036 draw apart in every sequence.
@@ -25,6 +27,7 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..pipeline.runner import _T_WC, frame_generator, frame_seed
 from ..pipeline.vo import VisualOdometry
@@ -80,15 +83,26 @@ def run_sequences_dp(
     states = [v.bootstrap(seq[0], seq[b], intermediate=seq[1:b],
                           generator=frame_generator(sd, 0, v.device))
               for v, seq, sd in zip(vos, padded, seeds)]
+    batches = seq_dp.stack_slots(states, mesh)
+    groups = seq_dp.device_groups(mesh)
     step = seq_dp.batched_step(vo, mesh)
+    packing = vo.outputs[False]  # T_CW, n_inliers, n_tracked, status
+    rows = [torch.empty((len(slots), packing.nbytes), dtype=torch.uint8,
+                        device=dev) for dev, slots in groups]
+    # Slot s's row in the devices' rows read back one after the other.
+    at = np.argsort([s for _, slots in groups for s in slots])
     poses, inliers, statuses = [], [], []
     for f in range(b + 1, F):
         gens = [frame_generator(sd, f, dev)
                 for sd, dev in zip(seeds, mesh.devices)]
-        states = step(states, [seq[f] for seq in padded], gens)
-        poses.append([_T_WC(st.T_CW.cpu().numpy())[:3, 3] for st in states])
-        inliers.append([int(st.n_inliers) for st in states])
-        statuses.append([int(st.status) for st in states])
+        batches = step(batches, [seq[f] for seq in padded], gens,
+                       outputs=rows)
+        host = torch.cat([r.cpu() for r in rows])
+        T_CW, n_inl, _, status = (v.numpy()[at]
+                                  for v in packing.views(host))
+        poses.append([_T_WC(T)[:3, 3] for T in T_CW])
+        inliers.append(n_inl.tolist())
+        statuses.append(status.tolist())
 
     return MultiSeqResult(
         positions=np.stack([np.stack(p) for p in poses], 1)[:S],

@@ -14,21 +14,25 @@ Departures from the reference, by design:
     in ``VisualOdometry``; :func:`detect_loops` calls it once per candidate
     pair in pair order (the reference's draw for pair k is
     ``fold_in(PRNGKey(seed), k)``).
-  * A chunk of 8 pairs is matched in one batched call; the essential RANSAC,
-    pose and triangulation then run pair by pair (the port's RANSAC takes
-    one problem), with one host sync per chunk.
+  * A chunk of 8 pairs is verified in one batched call, as the reference's
+    ``jax.vmap`` of its verifier: the matching takes the chunk as its
+    leading axis, and the essential RANSAC, pose and triangulation run under
+    ``torch.func.vmap`` (``verify_geometry``), with one host sync per
+    chunk.  Each pair's bank is drawn before the call, in pair order.
   * :func:`bank_to_arrays` / :func:`bank_from_arrays` carry a bank as the
     arrays of the reference's checkpoint (``kf_*``, ``bank_*``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..backend import posegraph, posegraph_sim3
+from ..core import linalg
 from ..ops import essential, match, sift, triangulate
 
 
@@ -229,44 +233,63 @@ def retrieve_candidates(bank: KeyframeBank, *, min_gap_frames: int = 30,
 VERIFY_CHUNK = 8
 
 
+def verify_geometry(cam, u0, u1m, mok, idx, samp_ok, *,
+                    threshold_px: float):
+    """One pair's geometry: 5-point essential RANSAC over the bank ``(idx,
+    samp_ok)`` on the matches ``(u0, u1m)`` flagged ``mok``, the cheirality
+    pose and the unit-baseline DLT depths in both views.  It runs alone or
+    under ``torch.func.vmap`` over a chunk of pairs, with the same result
+    for each pair.  Returns (inl, ok, R, t, votes, z_i, z_j, n_match,
+    n_inl)."""
+    E, inl, ok = essential.find_essential_ransac(
+        cam, u0, u1m, mok, idx, samp_ok, threshold_px=threshold_px,
+        solver="5point")
+    R, t, votes = essential.recover_pose(E, cam, u0, u1m, inl)
+    n = u0.shape[0]
+    Kmat = cam.matrix(u0.device)
+    P0 = linalg.matmul(Kmat, torch.eye(3, 4, device=u0.device))
+    P1 = linalg.matmul(Kmat, torch.cat([R, t[:, None]], 1))
+    X = triangulate.triangulate_dlt(P0.expand(n, 3, 4), P1.expand(n, 3, 4),
+                                    u0, u1m)
+    return (inl, ok, R, t, votes, X[:, 2], linalg.matmul(X, R[2]) + t[2],
+            mok.sum(), inl.sum())
+
+
 def verify_pairs(vo, cam, pairs, kfs, *, ransac_iters: int,
                  threshold_px: float, sampler, generator):
     """Geometric verification of keyframe pairs, a chunk of
-    ``VERIFY_CHUNK`` at a time: ratio-test matching (batched over the
-    chunk), 5-point essential RANSAC, cheirality pose and unit-baseline DLT
-    depths in both views (pair by pair).  Returns, per pair, the host
-    arrays (idx1, inl, ok, R, t, votes, z_i, z_j, n_match, n_inl)."""
+    ``VERIFY_CHUNK`` at a time, each chunk one batched call: ratio-test
+    matching over the chunk, then ``verify_geometry`` under
+    ``torch.func.vmap``.  The last chunk is padded by repeating its last
+    pair (and bank), and the padded results dropped.  The banks are drawn
+    pair by pair, in pair order, before the chunk's call.  Returns, per
+    pair, the host arrays (idx1, inl, ok, R, t, votes, z_i, z_j, n_match,
+    n_inl)."""
     dev = vo.device
     ratio = vo.config.sift.ratio
-    Kmat = cam.matrix(dev)
-    P0 = Kmat @ torch.eye(3, 4, device=dev)
+    geometry = torch.func.vmap(functools.partial(
+        verify_geometry, cam, threshold_px=threshold_px))
     out = []
     for c0 in range(0, len(pairs), VERIFY_CHUNK):
         chunk = pairs[c0:c0 + VERIFY_CHUNK]
+        padded = chunk + [chunk[-1]] * (VERIFY_CHUNK - len(chunk))
 
         def stack(name, side):
             return torch.from_numpy(np.stack(
-                [getattr(kfs[p[side]], name) for p in chunk])).to(dev)
+                [getattr(kfs[p[side]], name) for p in padded])).to(dev)
 
         u0, u1 = stack("uv", 0), stack("uv", 1)
         idx1, mok = match.match_ratio(stack("desc", 0), stack("valid", 0),
                                       stack("desc", 1), stack("valid", 1),
                                       ratio=ratio)
-        rows = []
-        for ci in range(len(chunk)):
-            u1m = u1[ci][idx1[ci]]
-            idx, samp_ok = sampler(generator, mok[ci], ransac_iters, 5)
-            E, inl, ok = essential.find_essential_ransac(
-                cam, u0[ci], u1m, mok[ci], idx, samp_ok,
-                threshold_px=threshold_px, solver="5point")
-            R, t, votes = essential.recover_pose(E, cam, u0[ci], u1m, inl)
-            n = u0.shape[1]
-            P1 = Kmat @ torch.cat([R, t[:, None]], 1)
-            X = triangulate.triangulate_dlt(P0.expand(n, 3, 4),
-                                            P1.expand(n, 3, 4), u0[ci], u1m)
-            rows.append((idx1[ci], inl, ok, R, t, votes, X[:, 2],
-                         X @ R[2] + t[2], mok[ci].sum(), inl.sum()))
-        out.extend(tuple(a.cpu().numpy() for a in row) for row in rows)
+        u1m = torch.gather(u1, 1, idx1[..., None].expand(-1, -1, 2))
+        banks = [sampler(generator, mok[ci], ransac_iters, 5)
+                 for ci in range(len(chunk))]
+        banks += banks[-1:] * (VERIFY_CHUNK - len(chunk))
+        rows = geometry(u0, u1m, mok, torch.stack([b[0] for b in banks]),
+                        torch.stack([b[1] for b in banks]))
+        host = [a.cpu().numpy() for a in (idx1, *rows)]
+        out.extend(tuple(a[ci] for a in host) for ci in range(len(chunk)))
     return out
 
 

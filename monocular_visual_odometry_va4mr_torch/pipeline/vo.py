@@ -20,6 +20,27 @@ A capture or replay that fails raises: nothing falls back to eager
 stepping.  On the CPU ``step`` runs ``_step_impl``.  The bootstrap runs
 eagerly everywhere.
 
+Batched, as in the reference's ``jax.jit(jax.vmap(_step_impl))``
+(``parallel/seq_dp.py``): ``step_batch(states, images, generators)`` steps S
+sequences in lockstep.  Its body, ``_step_batch_impl``, is
+``torch.func.vmap`` of ``_step_impl`` over the leading axis of the stacked
+state (``core.state.stack_states``), the images and the draws; both LK
+kernels fold the vmap's axis into their own batch axis (their custom ops'
+vmap rules), so each kernel call of the body is one launch for every
+sequence.  On a CUDA device it is captured per batch size as the solo step
+is (``StepGraphs``): one replay a frame for all S sequences.  Each sequence
+draws its bank from its own generator, as ``step`` would, so sequence s of a
+batch computes bit for bit what it computes in a batch of one: the body's
+contractions, long sums, solves and roots round alike in a batch
+(``core/linalg.py``: the CPU's forms on the CPU, the card's batch-invariant
+forms inside ``linalg.exact()``, which the batched body enters on the
+card), and the LK kernels give each problem its own blocks.  A solo step
+on the card takes the libraries' operations (``linalg.exact(False)``),
+which take fewer kernels, so there a sequence stepped alone rounds
+otherwise than in a batch; on the CPU both take the CPU's forms and agree
+bit for bit.
+The BA cadence is the host's (``host_frame``), one for the batch.
+
 Stage order inside a step: KLT (forward on the /4 then the full plane,
 backward check) -> PnP-RANSAC -> scale-locked landmark re-triangulation ->
 candidate promotion -> anchor maintenance -> corner replenishment -> in-step
@@ -38,8 +59,9 @@ Departures from the reference, by design:
     ``torch.Generator`` given to the call (the reference takes a key per
     call).  The step's bank is drawn before the step, outside the graph:
     a sampler with a ``draw(generator, num_hypotheses, sample_size)``
-    method (the default's is ``ransac.draw_uniforms``) gives uniforms that
-    the step maps onto the valid rows (``ransac.select_minimal_sets``).  A
+    method (the default's is ``ransac.draw_uniforms``) gives a draw that
+    the step maps onto the valid rows with the sampler's ``select``
+    (``ransac.select_minimal_sets`` unless it names its own).  A
     sampler without one (tests inject the reference's own draws) is handed
     the generator inside ``_step_impl`` and runs only eagerly.
   * The in-step BA trigger is a cadence the host knows (``state.host_frame``,
@@ -51,12 +73,13 @@ Departures from the reference, by design:
 """
 from __future__ import annotations
 
+import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..core import lie
+from ..core import lie, linalg
 from ..core.camera import Camera
 from ..core.config import PipelineConfig
 from ..core.slots import (alloc_slots, scatter_add_rows, scatter_rows,
@@ -120,8 +143,11 @@ class VisualOdometry:
                 "'pallas2' (5..15) or 'xla'.")
         self.sampler = sampler or ransac.sample_minimal_sets
         # Draws the step's bank outside the step, or None: the sampler then
-        # takes the generator inside ``_step_impl``.
+        # takes the generator inside ``_step_impl``.  A sampler with a draw
+        # may name the map of its draw onto the valid rows (``select``).
         self._draw = getattr(self.sampler, "draw", None)
+        self._select = getattr(self.sampler, "select",
+                               ransac.select_minimal_sets)
         self.seed = seed
         self.generator = None  # made at first use, on self.device
         self.ba_runs = 0  # in-step BA branches run (host-known cadence)
@@ -351,6 +377,49 @@ class VisualOdometry:
             self.ba_runs += 1
         return new
 
+    def step_batch(self, states: FrameState, images,
+                   generators: Sequence[torch.Generator], *,
+                   outputs: Optional[torch.Tensor] = None,
+                   landmarks: bool = False) -> FrameState:
+        """One frame of S sequences in lockstep: a replay of the captured
+        batched step on a CUDA device, ``_step_batch_impl`` on the CPU.
+
+        ``states``: S states stacked on a leading axis
+        (``core.state.stack_states``), one ``host_frame`` for all.
+        ``images``: (S, H, W), a tensor or S frames.  ``generators``: one
+        per sequence; sequence s draws its bank from ``generators[s]`` as
+        ``step`` draws it.  ``outputs``: a uint8 tensor (S,
+        ``self.outputs[landmarks].nbytes``) on the device, which gets each
+        sequence's ``frame_outputs``.  Returns the S new states, stacked."""
+        S = states.T_CW.shape[0]
+        if states.T_CW.shape != (S, 4, 4) or len(generators) != S:
+            raise ValueError(f"a batch of {states.T_CW.shape[:-2]} states "
+                             f"with {len(generators)} generators")
+        if self._draw is None:
+            raise TypeError("the batched step takes its RANSAC draws as "
+                            "tensors: a sampler without draw() runs only "
+                            "through step")
+        run_ba = self.ba_due(states)
+        draws = torch.stack([self.step_draws(g).to(self.device)
+                             for g in generators])
+        if not torch.is_tensor(images):
+            images = torch.stack([torch.as_tensor(im) for im in images])
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                self.graphs = StepGraphs(self)
+            new = self.graphs.step(states, images, draws, run_ba, outputs,
+                                   landmarks, batch=S)
+        else:
+            new = self._step_batch_impl(states, images.to(self.device),
+                                        draws, run_ba)
+            if outputs is not None:
+                self.outputs[landmarks].pack(
+                    outputs, batch_frame_outputs(new, landmarks))
+        new.host_frame = states.host_frame_idx() + 1
+        if run_ba:
+            self.ba_runs += 1
+        return new
+
     def ba_due(self, state: FrameState) -> bool:
         """Whether the step after ``state`` runs the in-step BA: a full ring
         and the trigger cadence, decided from ``state.host_frame``."""
@@ -373,7 +442,14 @@ class VisualOdometry:
                    run_ba: bool) -> FrameState:
         """The step's body: ``image`` (H, W) of any dtype, ``draws`` from
         ``step_draws``, ``run_ba`` from ``ba_due``.  Nothing in it reads a
-        device value on the host, so it can be captured."""
+        device value on the host, so it can be captured.  On the card it
+        takes the libraries' arithmetic, whatever ``linalg.exact`` the
+        caller is in, so a graph's arithmetic follows from its key."""
+        with linalg.exact(False):
+            return self._step_body(state, image, draws, run_ba)
+
+    def _step_body(self, state: FrameState, image, draws,
+                   run_ba: bool) -> FrameState:
         cfg = self.config
         K = cfg.capacity.max_landmarks
         dev = self.device
@@ -390,7 +466,7 @@ class VisualOdometry:
 
         # (2) PnP-RANSAC; hold the pose and report LOST on failure.
         if self._draw is not None:
-            idx, hyp_ok = ransac.select_minimal_sets(draws.to(dev), lm_valid)
+            idx, hyp_ok = self._select(draws.to(dev), lm_valid)
         else:
             idx, hyp_ok = self.sampler(draws, lm_valid, cfg.pnp.iterations, 3)
         T_CW, pnp_inliers, pnp_ok = pnp.solve_pnp_ransac(
@@ -417,9 +493,9 @@ class VisualOdometry:
                 # Keep the re-triangulated bearing, pull the depth back
                 # toward the previous estimate (geometric blend) so depth
                 # refreshes cannot random-walk the monocular scale.
-                z_old = state.lm_xyz @ T_CW[2, :3] + T_CW[2, 3]
-                z_new = X_re @ T_CW[2, :3] + T_CW[2, 3]
-                C = -T_CW[:3, :3].T @ T_CW[:3, 3]
+                z_old = linalg.matmul(state.lm_xyz, T_CW[2, :3]) + T_CW[2, 3]
+                z_new = linalg.matmul(X_re, T_CW[2, :3]) + T_CW[2, 3]
+                C = -linalg.matmul(T_CW[:3, :3].T, T_CW[:3, 3])
                 blend = lmc.retri_depth_blend
                 z_new_safe = torch.where(z_new.abs() > 1e-6, z_new,
                                          torch.ones_like(z_new))
@@ -427,7 +503,8 @@ class VisualOdometry:
                 depth_ok = (z_old > lmc.min_dist) & (z_new > 1e-6)
                 ratio = torch.where(
                     depth_ok & (full_ratio > 0),
-                    torch.clamp(full_ratio, min=1e-6) ** (1.0 - blend),
+                    linalg.power(torch.clamp(full_ratio, min=1e-6),
+                                 1.0 - blend),
                     torch.ones_like(full_ratio))
                 X_re = torch.where(depth_ok[:, None],
                                    C + (X_re - C) * ratio[:, None], X_re)
@@ -541,6 +618,27 @@ class VisualOdometry:
             n_tracked=tracked[:K].sum().to(torch.int32),
         )
 
+    def _step_batch_impl(self, states: FrameState, images: torch.Tensor,
+                         draws: torch.Tensor, run_ba: bool) -> FrameState:
+        """The batched step's body: ``torch.func.vmap`` of ``_step_impl``
+        over the leading axis of ``states``' tensors, of ``images`` (S, H,
+        W) and of ``draws`` (S, iterations, 3).  Every op of the body has a
+        batching rule (none falls back to a loop over the slices), and the
+        LK kernels' custom ops take the whole batch in one launch."""
+        if not torch.is_tensor(draws):
+            raise TypeError("the batched step takes its RANSAC draws as a "
+                            "tensor (S, iterations, 3)")
+
+        def one(tensors, image, d):
+            return self._step_body(states.with_tensors(tensors), image, d,
+                                   run_ba).tensors()
+
+        # The card's batch-invariant forms on the card; the CPU's own forms
+        # are batch-invariant there (core/linalg.py).
+        with linalg.exact(self.device.type == "cuda"):
+            return states.with_tensors(
+                torch.func.vmap(one)(states.tensors(), images, draws))
+
     def _run_ba_branch(self, ba_T, ba_uv, ba_mask, ba_gen, lm_xyz_in, lm_gen,
                        lm_valid_new, slot):
         """Windowed BA over the ring, oldest..newest, with the
@@ -582,6 +680,10 @@ class VisualOdometry:
         """Run BA; keep the update only when the window RMS does not get
         worse (a GN step on an ill-conditioned window can raise it)."""
         cfg = self.config.ba
+        # Contiguous: the window's gathers leave other layouts under
+        # torch.func.vmap, and a sum over another layout may add in another
+        # order; laid out alike, a batch rounds as its slices alone.
+        win = ba_mod.BAWindow(*(t.contiguous() for t in win))
         out, _ = ba_mod.run_ba(win, self.cam, iters=cfg.iters,
                                huber_px=cfg.huber_px, n_fixed=2)
         rms_pre = ba_mod.reprojection_rms(win, self.cam)
@@ -598,9 +700,16 @@ def frame_outputs(state: FrameState, landmarks: bool = False):
     out = (state.T_CW, state.n_inliers, state.n_tracked, state.status)
     if not landmarks:
         return out
-    z = state.lm_xyz @ state.T_CW[2, :3] + state.T_CW[2, 3]
+    z = linalg.matmul(state.lm_xyz, state.T_CW[2, :3]) + state.T_CW[2, 3]
     return out + (state.lm_uv, z,
                   state.lm_valid & torch.isfinite(z) & (z > 0))
+
+
+def batch_frame_outputs(states: FrameState, landmarks: bool = False):
+    """``frame_outputs`` of each of S stacked states, as (S, ...) tensors."""
+    return torch.func.vmap(lambda ts: frame_outputs(states.with_tensors(ts),
+                                                    landmarks))(
+        states.tensors())
 
 
 # The kernel wrappers whose launch counts a replay adds to.
@@ -616,23 +725,44 @@ def _set_launch_counts(counts: Tuple[int, ...]) -> None:
         fn.launches = n
 
 
+class _Buffers:
+    """The static buffers of one batch size: the state (one packed row, or
+    S rows), the image per upload dtype, the draws and the outputs."""
+
+    def __init__(self, lead: tuple, packing: Packing, like: FrameState,
+                 vo: "VisualOdometry"):
+        dev = vo.device
+        self.state = torch.empty(lead + (packing.nbytes,), dtype=torch.uint8,
+                                 device=dev)
+        self.static = like.with_tensors(packing.views(self.state))
+        self.images: Dict[torch.dtype, torch.Tensor] = {}
+        self.draws = None
+        self.outputs = {lm: torch.empty(lead + (p.nbytes,),
+                                        dtype=torch.uint8, device=dev)
+                        for lm, p in vo.outputs.items()}
+
+
 class StepGraphs:
     """``VisualOdometry._step_impl`` captured as CUDA graphs over static
-    buffers: the counterpart of the reference's ``jax.jit(_step_impl)``.
+    buffers: the counterpart of the reference's ``jax.jit(_step_impl)``,
+    and of ``jax.jit(jax.vmap(_step_impl))`` for a batch.
 
-    The buffers: the state (every tensor of a ``FrameState`` packed in one
-    uint8 buffer, ``Packing``), one image buffer per upload dtype (uint8,
-    float32), the RANSAC draws, and the frame's outputs (``frame_outputs``,
-    packed as ``vo.outputs``) for callers that ask for them.  A graph reads
-    the state, the image and the draws and writes the next state back over
-    the state buffer (and the outputs into theirs).  One graph per (upload
-    dtype, in-step BA or not, tracker, outputs: none, without or with the
-    landmark snapshot), captured at first use after one warm-up run on a
-    side stream (it builds and loads the kernels and the library handles,
-    and makes the step's constant tensors, ``core.linalg.constant``); all
-    share one memory pool.  Capturing records how many launches of each
-    counted kernel the graph holds; each replay adds them to the wrapper's
-    count, and the warm-up and the capture add nothing.
+    The buffers, per batch size (none for one sequence, S for the batched
+    step ``_step_batch_impl``): the state (every tensor of a ``FrameState``
+    packed in one uint8 row, ``Packing``, or S rows), one image buffer per
+    upload dtype (uint8, float32), the RANSAC draws, and the frame's outputs
+    (``frame_outputs``, packed as ``vo.outputs``) for callers that ask for
+    them.  A graph reads the state, the image and the draws and writes the
+    next state back over the state buffer (and the outputs into theirs).
+    One graph per (upload dtype, in-step BA or not, tracker, outputs: none,
+    without or with the landmark snapshot, batch size), captured at first
+    use after one warm-up run on a side stream (it builds and loads the
+    kernels and the library handles, and makes the step's constant tensors,
+    ``core.linalg.constant``); all share one memory pool.  Capturing records
+    how many launches of each counted kernel the graph holds; each replay
+    adds them to the wrapper's count, and the warm-up and the capture add
+    nothing.  A batched graph holds as many launches as the solo one: each
+    kernel call of the body takes every sequence.
 
     ``step`` copies the state in (one copy for a state a replay returned, a
     copy per tensor otherwise), replays, and returns the new state as views
@@ -643,29 +773,25 @@ class StepGraphs:
         self.vo = vo
         self.pool = torch.cuda.graph_pool_handle()
         self.packing: Optional[Packing] = None
-        self.state_buf = None
-        self.static: Optional[FrameState] = None
-        self.images: Dict[torch.dtype, torch.Tensor] = {}
-        self.draws = None
-        self.out_bufs = {lm: torch.empty(p.nbytes, dtype=torch.uint8,
-                                         device=vo.device)
-                         for lm, p in vo.outputs.items()}
+        self.bufs: Dict[Optional[int], _Buffers] = {}
         self.graphs: Dict[tuple, tuple] = {}  # key -> (graph, launches held)
         self.capture_s: Dict[tuple, float] = {}  # warm-up included
         self.replays = 0
 
     def step(self, state: FrameState, image, draws, run_ba: bool,
-             outputs: Optional[torch.Tensor],
-             landmarks: bool) -> FrameState:
+             outputs: Optional[torch.Tensor], landmarks: bool,
+             batch: Optional[int] = None) -> FrameState:
+        """Replay the step for one state, or for ``batch`` stacked states
+        (``image`` (S, H, W), ``draws`` (S, iterations, 3))."""
         vo = self.vo
         dev = vo.device
-        self._load_state(state)
+        b = self._load_state(state, batch)
         img = torch.as_tensor(image)
         dtype = torch.uint8 if img.dtype == torch.uint8 else torch.float32
-        if dtype not in self.images:
-            self.images[dtype] = torch.empty(tuple(img.shape), dtype=dtype,
-                                             device=dev)
-        img_buf = self.images[dtype]
+        if dtype not in b.images:
+            b.images[dtype] = torch.empty(tuple(img.shape), dtype=dtype,
+                                          device=dev)
+        img_buf = b.images[dtype]
         if img.shape != img_buf.shape:
             raise ValueError(f"image of shape {tuple(img.shape)}; the step "
                              f"was captured at {tuple(img_buf.shape)}")
@@ -674,49 +800,55 @@ class StepGraphs:
             raise TypeError("the captured step takes its RANSAC draws as a "
                             "tensor: a sampler without draw() runs only "
                             "through _step_impl")
-        if self.draws is None:
-            self.draws = torch.empty(tuple(draws.shape), dtype=draws.dtype,
-                                     device=dev)
-        if draws.shape != self.draws.shape or draws.dtype != self.draws.dtype:
+        if b.draws is None:
+            b.draws = torch.empty(tuple(draws.shape), dtype=draws.dtype,
+                                  device=dev)
+        if draws.shape != b.draws.shape or draws.dtype != b.draws.dtype:
             raise ValueError(f"draws {draws.dtype} {tuple(draws.shape)}; the "
-                             f"step was captured with {self.draws.dtype} "
-                             f"{tuple(self.draws.shape)}")
-        self.draws.copy_(draws)
+                             f"step was captured with {b.draws.dtype} "
+                             f"{tuple(b.draws.shape)}")
+        b.draws.copy_(draws)
 
         out = None if outputs is None else landmarks
-        key = (dtype, run_ba, vo.klt_backend, out)
+        key = (dtype, run_ba, vo.klt_backend, out, batch)
         if key not in self.graphs:
-            self.graphs[key] = self._capture(key, img_buf, run_ba, out)
+            self.graphs[key] = self._capture(key, b, img_buf, run_ba, out,
+                                             batch)
         graph, held = self.graphs[key]
         graph.replay()
         _set_launch_counts(tuple(c + h for c, h
                                  in zip(_launch_counts(), held)))
         self.replays += 1
-        snap = self.state_buf.clone()
-        new = self.static.with_tensors(self.packing.views(snap))
+        snap = b.state.clone()
+        new = b.static.with_tensors(self.packing.views(snap))
         new._step_buf = (self.packing.specs, snap)
         if outputs is not None:
-            outputs.copy_(self.out_bufs[landmarks])
+            outputs.copy_(b.outputs[landmarks])
         return new
 
-    def _load_state(self, state: FrameState) -> None:
+    def _load_state(self, state: FrameState,
+                    batch: Optional[int]) -> _Buffers:
         tensors = state.tensors()
         if self.packing is None:
-            self.packing = Packing(tensors)
-            self.state_buf = torch.empty(self.packing.nbytes,
-                                         dtype=torch.uint8,
-                                         device=self.vo.device)
-            self.static = state.with_tensors(
-                self.packing.views(self.state_buf))
+            self.packing = Packing(tensors if batch is None
+                                   else [t[0] for t in tensors])
+        if batch not in self.bufs:
+            self.bufs[batch] = _Buffers(() if batch is None else (batch,),
+                                        self.packing, state, self.vo)
+        b = self.bufs[batch]
         specs, buf = getattr(state, "_step_buf", (None, None))
-        if specs == self.packing.specs and buf.device == self.state_buf.device:
-            self.state_buf.copy_(buf)
+        if (specs == self.packing.specs and buf.shape == b.state.shape
+                and buf.device == b.state.device):
+            b.state.copy_(buf)
         else:
-            self.packing.pack(self.state_buf, tensors)
+            self.packing.pack(b.state, tensors)
+        return b
 
-    def _capture(self, key, img_buf: torch.Tensor, run_ba: bool,
-                 out: Optional[bool]):
+    def _capture(self, key, b: _Buffers, img_buf: torch.Tensor, run_ba: bool,
+                 out: Optional[bool], batch: Optional[int]):
         vo = self.vo
+        body, outs_of = ((vo._step_impl, frame_outputs) if batch is None
+                         else (vo._step_batch_impl, batch_frame_outputs))
         t0 = time.perf_counter()
         counts = _launch_counts()
         main = torch.cuda.current_stream(vo.device)
@@ -724,23 +856,32 @@ class StepGraphs:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             # Warm-up: its result is dropped, the buffers keep the input.
-            vo._step_impl(self.static, img_buf, self.draws, run_ba)
+            body(b.static, img_buf, b.draws, run_ba)
         main.wait_stream(side)
         warmed = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            new = vo._step_impl(self.static, img_buf, self.draws, run_ba)
-            # Through a scratch buffer: the new state may share tensors with
-            # the one it was made from.
-            scratch = torch.empty_like(self.state_buf)
-            self.packing.pack(scratch, new.tensors())
-            if out is not None:
-                vo.outputs[out].pack(self.out_bufs[out],
-                                     frame_outputs(new, out))
-            self.state_buf.copy_(scratch)
-            del new, scratch
-        held = tuple(a - b for a, b in zip(_launch_counts(), warmed))
+        # No garbage collection inside the capture: a graph it frees (one of
+        # a VO that is gone) would end the capture, since no graph may be
+        # destroyed while a stream captures.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                new = body(b.static, img_buf, b.draws, run_ba)
+                # Through a scratch buffer: the new state may share tensors
+                # with the one it was made from.
+                scratch = torch.empty_like(b.state)
+                self.packing.pack(scratch, new.tensors())
+                if out is not None:
+                    vo.outputs[out].pack(b.outputs[out], outs_of(new, out))
+                b.state.copy_(scratch)
+                del new, scratch
+        finally:
+            if collecting:
+                gc.enable()
+        held = tuple(a - b_ for a, b_ in zip(_launch_counts(), warmed))
         _set_launch_counts(counts)
         torch.cuda.synchronize(vo.device)
         self.capture_s[key] = time.perf_counter() - t0

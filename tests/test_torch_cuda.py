@@ -755,3 +755,133 @@ def test_graph_step_raises_for_a_sampler_without_draw(cuda):
     s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2])
     with pytest.raises(TypeError, match="draw"):
         vo.step(s, frames[3])
+
+
+@pytest.mark.parametrize("name", ["klt_lk", "klt_v1"])
+def test_batched_launch_equals_solo_launches(cuda, name):
+    """Three problems on a batch axis: one launch, bit for bit the three
+    solo launches; ``torch.func.vmap`` of the wrapper is that one launch."""
+    gen = torch.Generator().manual_seed(7)
+    H, W, N = 376, 1241, 1024
+    args = []
+    for b in range(3):
+        tmpl = smooth_image(gen, H, W)
+        srch = torch.roll(tmpl, shifts=(b - 1, 2 - b), dims=(0, 1))
+        pts = torch.stack([torch.rand(N, generator=gen) * W,
+                           torch.rand(N, generator=gen) * H], 1)
+        q = pts + torch.tensor([2.0 - b, b - 1.0]) + torch.randn(
+            N, 2, generator=gen)
+        valid = torch.rand(N, generator=gen) < 0.9
+        if name == "klt_lk":
+            po, pp = tk2._origin_and_phase(pts, 15)
+            qo, qp = tk2._origin_and_phase(q, 15)
+            rest = (torch.cat([po, pp, qo, qp], 1), valid)
+        else:
+            rest = (torch.stack([pts[:, 1], pts[:, 0], q[:, 1], q[:, 0],
+                                 valid.float()], 1),)
+        args.append([t.to(cuda) for t in (tmpl, srch.contiguous(), *rest)])
+    wrapper = tk2.klt_lk if name == "klt_lk" else tv1.klt_v1
+    kw = dict(num_iters=6, eps=0.01, min_eig_threshold=1e-4,
+              max_residual=20.0, **({"win": 15} if name == "klt_lk" else {}))
+    batch = [torch.stack(ts) for ts in zip(*args)]
+    before = wrapper.launches
+    out = wrapper(*batch, **kw)
+    assert wrapper.launches == before + 1
+    solo = torch.stack([wrapper(*a, **kw) for a in args])
+    assert same_bits(out, solo)
+    before = wrapper.launches
+    mapped = torch.func.vmap(lambda *t: wrapper(*t, **kw))(*batch)
+    assert wrapper.launches == before + 1 and same_bits(mapped, solo)
+    assert (out[..., 2] > 0.5).float().mean() > 0.5
+
+
+def test_batched_graph_step_equals_the_eager_batched_body(cuda):
+    """Three sequences stepped by ``step_batch`` (one replay a frame)
+    against the batched body run op by op with the same draws, over 9
+    frames through BA triggers: every state tensor equal, 3 ``klt_lk``
+    launches a batched step, one graph per (skip, BA) at batch size 3."""
+    from monocular_visual_odometry_va4mr_torch.core.state import (
+        stack_states)
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo_g, vo_e = make(), make()
+    gens = lambda i: [runner.frame_generator(s, i, cuda)  # noqa: E731
+                      for s in range(3)]
+    boots = [vo_g.bootstrap(frames[s], frames[s + 2],
+                            intermediate=frames[s + 1:s + 2],
+                            generator=runner.frame_generator(s, 0, cuda))
+             for s in range(3)]
+    b_g = b_e = stack_states(boots)
+    for i in range(3, 12):
+        images = [frames[s + i] for s in range(3)]
+        before = tk2.klt_lk.launches
+        b_g = vo_g.step_batch(b_g, images, gens(i))
+        assert tk2.klt_lk.launches == before + 3
+        run_ba = vo_e.ba_due(b_e)
+        draws = torch.stack([vo_e.step_draws(g) for g in gens(i)])
+        host = b_e.host_frame
+        b_e = vo_e._step_batch_impl(
+            b_e, torch.stack([torch.as_tensor(im) for im in images]).to(cuda),
+            draws, run_ba)
+        b_e.host_frame = host + 1
+        for k, (a, b) in enumerate(zip(b_g.tensors(), b_e.tensors())):
+            assert same_bits(a, b), (i, k, describe(a, b))
+    assert vo_g.ba_runs >= 4
+    assert sorted(k[1] for k in vo_g.graphs.graphs) == [False, True]
+    assert {k[-1] for k in vo_g.graphs.graphs} == {3}
+
+
+def test_batched_step_equals_batches_of_one(cuda):
+    """Three sequences stepped by ``step_batch`` equal, bit for bit, each
+    stepped in a batch of one with the same generators, over 9 frames
+    through BA triggers: a sequence does not depend on its batch-mates."""
+    from monocular_visual_odometry_va4mr_torch.core.state import (
+        stack_states, unstack_states)
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo = make()
+    boots = [vo.bootstrap(frames[s], frames[s + 2],
+                          intermediate=frames[s + 1:s + 2],
+                          generator=runner.frame_generator(s, 0, cuda))
+             for s in range(3)]
+    alone = []
+    for s, st in enumerate(boots):
+        run, one = [], stack_states([st])
+        for i in range(3, 12):
+            one = vo.step_batch(one, [frames[s + i]],
+                                [runner.frame_generator(s, i, cuda)])
+            run.append([t.clone() for t in unstack_states(one)[0].tensors()])
+        alone.append(run)
+    batch = stack_states(boots)
+    for k, i in enumerate(range(3, 12)):
+        batch = vo.step_batch(
+            batch, [frames[s + i] for s in range(3)],
+            [runner.frame_generator(s, i, cuda) for s in range(3)])
+        for s, one in enumerate(unstack_states(batch)):
+            for a, b in zip(one.tensors(), alone[s][k]):
+                assert same_bits(a, b), (i, s, describe(a, b))
+    assert vo.ba_runs >= 8
+
+
+def test_solo_step_keeps_its_arithmetic_inside_exact(cuda):
+    """A solo step takes the libraries' arithmetic whatever ``linalg.exact``
+    its caller is in: a VO whose graphs were captured inside ``exact()``
+    steps bit for bit as one captured outside it."""
+    from monocular_visual_odometry_va4mr_torch.core import linalg
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    runs = []
+    for mode in (True, False):
+        vo = make()
+        st = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                          generator=runner.frame_generator(0, 0, cuda))
+        with linalg.exact(mode):
+            for i in range(3, 8):
+                st = vo.step(st, frames[i],
+                             generator=runner.frame_generator(0, i, cuda))
+        runs.append(st)
+    for a, b in zip(runs[0].tensors(), runs[1].tensors()):
+        assert same_bits(a, b), describe(a, b)

@@ -22,6 +22,12 @@ inliers either way, t 0.26 apart), within 1e-3 of the eager one.  So
 ``refine_trajectory`` is held against the reference on the same loop edges
 (both packages' ``detect_loops`` return the port's): refined positions
 within 1e-3 of the path length, Sim(3) and SE(3).
+
+``verify_pairs`` takes each chunk of 8 candidates in one batched call (the
+matching over the chunk, ``verify_geometry`` under ``torch.func.vmap``);
+on this bank every pair's arrays equal, bit for bit, those of the same
+functions called pair by pair with the same banks, and no op of the batched
+call falls back to a loop over the pairs.
 """
 import dataclasses
 
@@ -48,7 +54,9 @@ from monocular_visual_odometry_va4mr_torch.core.camera import Camera
 from monocular_visual_odometry_va4mr_torch.dataio import synthetic
 from monocular_visual_odometry_va4mr_torch.pipeline import (
     checkpoint, posegraph_runner, runner)
+from monocular_visual_odometry_va4mr_torch.ops import match
 from monocular_visual_odometry_va4mr_torch.pipeline.vo import VisualOdometry
+from test_torch_batched import no_vmap_fallback
 
 torch.set_num_threads(1)
 
@@ -205,6 +213,35 @@ def test_detect_loops_matches_reference(orbit, port_loops):
             R, tt = eager_reference_pose(orbit, cands.index(j[:2]), *j[:2])
         np.testing.assert_allclose(t[2], R, rtol=0, atol=POSE_TOL)
         np.testing.assert_allclose(t[3], tt, rtol=0, atol=POSE_TOL)
+
+
+def test_batched_verifier_equals_the_per_pair_functions(orbit):
+    vo, kfs = orbit["tvo"], orbit["bank"].keyframes
+    pairs = posegraph_runner.retrieve_candidates(
+        orbit["bank"], min_gap_frames=LOOP_GATES["min_gap_frames"])
+    # More than one chunk, the last one padded.
+    assert len(pairs) > posegraph_runner.VERIFY_CHUNK
+    assert len(pairs) % posegraph_runner.VERIFY_CHUNK
+    kw = dict(ransac_iters=300, threshold_px=1.5, sampler=vo.sampler)
+    with no_vmap_fallback():
+        batched = posegraph_runner.verify_pairs(
+            vo, vo.cam, pairs, kfs, generator=torch.Generator().manual_seed(0),
+            **kw)
+    gen = torch.Generator().manual_seed(0)
+    assert len(batched) == len(pairs)
+    for (a, b), got in zip(pairs, batched):
+        ka, kb = kfs[a], kfs[b]
+        idx1, mok = match.match_ratio(
+            torch.from_numpy(ka.desc), torch.from_numpy(ka.valid),
+            torch.from_numpy(kb.desc), torch.from_numpy(kb.valid),
+            ratio=vo.config.sift.ratio)
+        u0, u1m = torch.from_numpy(ka.uv), torch.from_numpy(kb.uv)[idx1]
+        idx, ok = vo.sampler(gen, mok, kw["ransac_iters"], 5)
+        want = (idx1, *posegraph_runner.verify_geometry(
+            vo.cam, u0, u1m, mok, idx, ok, threshold_px=kw["threshold_px"]))
+        assert len(got) == len(want) == 10
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y.numpy())
 
 
 @pytest.mark.parametrize("method", ["sim3", "se3"])

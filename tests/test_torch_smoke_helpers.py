@@ -2,6 +2,7 @@
 CPU: ``CpuDraws`` draws what the call's own CPU generator would, and
 ``replay`` of a ``step_loop`` on the device it ran on changes nothing.  On
 the card the same helpers hold each card step against the CPU's."""
+import dataclasses
 import pathlib
 import sys
 
@@ -56,3 +57,49 @@ def test_replay_on_the_same_device_changes_no_step():
     assert rep["steps"] == 7 and rep["max_step_m"] == 0.0
     assert not (rep["steps_inliers_differ"] or rep["steps_tracked_differ"]
                 or rep["steps_status_differ"] or rep["most_changed"])
+
+
+def test_lockstep_phase_on_the_cpu(monkeypatch):
+    """Phase E's ``lockstep`` rehearsed on the CPU: the card's clocks and
+    profiler stubbed, ``klt_lk`` counted where the tracker calls it (once
+    per batched call, as the kernel launches once for the batch).  Every
+    sequence equals itself in a batch of one and its solo run (on the CPU
+    both take the CPU's forms, core/linalg.py), so its ATE is the solo
+    run's, and the launch count is the batched step's."""
+    from monocular_visual_odometry_va4mr_torch.dataio import synthetic
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+    from test_torch_parallel import small_config
+
+    scenes = [synthetic.make_corridor_scene(seed=s, num_frames=9,
+                                            num_points=2000,
+                                            image_shape=(160, 224), step=0.5)
+              for s in (1, 2, 3)]
+    seqs = [[synthetic.render_frame(sc, i) for i in range(9)]
+            for sc in scenes]
+    cfg = small_config((160, 224))
+    cfg = cfg.replace(klt=dataclasses.replace(cfg.klt, backend="pallas2"))
+    vo = VisualOdometry(Camera.from_matrix(scenes[0].K), cfg, "cpu")
+    lk = k2.klt_lk
+
+    def counted(*a, **kw):
+        counted.launches += 1
+        return lk(*a, **kw)
+
+    counted.launches = 0
+    monkeypatch.setattr(k2, "klt_lk", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "profile_calls",
+                        lambda fn, reps=3: (fn(), (1.0, 100.0, 10.0))[1])
+    monkeypatch.setattr(chip_smoke, "BOOTSTRAP_STRIDE", 2)
+    res = chip_smoke.lockstep(vo, seqs, [(sc, 0) for sc in scenes])
+    assert res["ok"] and res["sequences"] == 3
+    assert res["batched_steps"] == 6
+    assert res["launches"] == res["launches_expected"] == 3 * (6 + 3 * 2)
+    assert res["launches_per_batched_step"] == 3.0
+    for s in range(3):
+        seq = res[f"seq{s}"]
+        assert seq["statuses_equal"] and seq["pos_diff"] == 0.0
+        assert seq["solo"]["pos_diff"] == 0.0
+        assert seq["finite"] and seq["ate"] == seq["solo"]["ate"]

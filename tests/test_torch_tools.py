@@ -27,8 +27,8 @@ from monocular_visual_odometry_va4mr_torch.core import config as tconfig
 from monocular_visual_odometry_va4mr_torch.dataio import synthetic as tsyn
 from monocular_visual_odometry_va4mr_torch.evalx import ate as tate
 from monocular_visual_odometry_va4mr_torch.tools import (
-    bench, bench_ba_scaling, bench_datasets, bench_native_decode,
-    bench_stream, bench_stream_2761, diag_ba, diag_drift, diag_e2e,
+    bench, bench_ba_scaling, bench_datasets, bench_lockstep,
+    bench_native_decode, bench_stream, bench_stream_2761, diag_ba, diag_drift, diag_e2e,
     diag_survival, diag_tracker, exp_ate, harness, make_kitti_seq,
     profile_ba, profile_branch, profile_step, profile_trigger,
     stress_klt_motion, traj_ba_convergence)
@@ -97,6 +97,23 @@ def test_bench_lines(small, monkeypatch, capsys):
     assert rc == (0 if all(r["healthy"] for r in runs) else 2)
     for r in runs:
         assert r["value"] == (r["measured_fps"] if r["healthy"] else 0.0)
+
+
+def test_bench_lockstep_lines(small, monkeypatch, capsys):
+    """The batch-size sweep at 2 sizes on the CPU: one line per size, the
+    windows stepped as one batch, device numbers ``None``."""
+    monkeypatch.setattr(bench, "NUM_FRAMES", 20)
+    monkeypatch.setattr(bench, "IMAGE_SHAPE", SMALL)
+    rc = bench_lockstep.main(["--device", "cpu", "--sizes", "1,3",
+                              "--frames", "8"])
+    out = lines(capsys)
+    assert rc == 0 and [r["sequences"] for r in out] == [1, 3]
+    for r in out:
+        assert r["batched_steps"] == 8 - bench.BOOTSTRAP_STRIDE - 1
+        assert r["ms_per_batched_frame"] > 0 and r["device"] == "cpu"
+        assert r["profile"] is None and r["peak_device_mb"] is None
+    assert bench_lockstep.windows(list(range(100)), 11, 24)[-1] == list(
+        range(70, 94))
 
 
 def test_bench_datasets_lines(small, monkeypatch, capsys):
@@ -186,8 +203,8 @@ def test_stress_klt_motion_lines(small, monkeypatch, capsys):
     bench, bench_datasets, profile_step, diag_tracker, stress_klt_motion,
     bench_stream, bench_stream_2761, make_kitti_seq, bench_native_decode,
     profile_ba, profile_branch, profile_trigger, diag_ba, bench_ba_scaling,
-    traj_ba_convergence, diag_e2e, diag_drift, diag_survival, exp_ate],
-    ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+    traj_ba_convergence, diag_e2e, diag_drift, diag_survival, exp_ate,
+    bench_lockstep], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_tools_default_to_cuda_and_refuse_without_it(tool):
     """No ``--device``: the card.  Without one the tool raises before it
     renders or runs anything; nothing falls back to the CPU."""
