@@ -46,6 +46,16 @@ exits nonzero:
    and more than one BA run.  The ``step_graph`` line: host ms, host
    dispatches, device events and device ms a frame, replayed and eager;
    capture seconds per graph; peak device memory of the replayed run.
+3a. The main path's bootstrap as graphs (``bootstrap_graph``): the KLT
+   bootstrap over frames 0..4 replayed (``bootstrap``: a graph for the
+   first frame's pyramid and corners, one a hop, the geometry captured in
+   segments around torch's ``eigh`` and ``svd``, which read their error
+   codes on the host) against the same work op by op
+   (``bootstrap_eager``), with one generator: bit for bit equal, 3
+   ``klt_lk`` launches a replayed hop; host ms, host dispatches, device
+   events and device ms of each (here and in phases A and B: the replay's
+   host ms over 5 synced calls, the op-by-op host ms over one, the rest
+   from ``torch.profiler`` over one call of each).
 3b. A preset at its own geometry: ``tools/bench_datasets``' Malaga run
    (``tune_for_tpu(malaga_config())``, the only preset with ``mid_iters=4``,
    KLT bootstrap, quality 0.03) on a 95-frame textured scene (seed 11) at
@@ -78,17 +88,24 @@ exits nonzero:
    trajectory must be finite.
 8. The v1 path: ``runner.run_sequence`` over the same 100 frames with
    ``klt.backend="pallas"``, stride 4, recovery on.  ``klt_v1`` must have
-   launched 3 times per bootstrap hop (re-bootstraps included) plus 3 times
-   per step, ``klt_lk`` never; the health gate of phase 3.
+   launched 3 times per bootstrap hop (re-bootstraps included, counted
+   around each bootstrap call) plus 3 times per step, ``klt_lk`` never;
+   the health gate of phase 3.
 A. The SIFT bootstrap: ``runner.run_sequence`` over the same 100 frames with
    ``kitti_tuned_config()``'s own ``bootstrap_method="sift"``, stride 4,
    recovery on, ``pallas2``.  ``klt_lk`` 3 launches per step (a SIFT
    bootstrap tracks nothing); the health gate of phase 3.  Also
-   ``detect_and_compute`` at full resolution: host ms per call after a
-   sync, device ms and kernel launches per call from ``torch.profiler``,
-   valid features and ratio matches of the bootstrap pair, the share of
+   ``detect_and_compute`` at full resolution (the ``sift`` line): its host
+   ms, device ms and device events per call, those of ``sift_graph``'s op
+   by op run below, valid features and ratio matches of the bootstrap pair, the share of
    keypoints whose orientation differs from the same call on the CPU (the
-   histogram's atomic adds reorder sums), and the bootstrap's landmarks.
+   card sums the histogram in its own fixed order), and the bootstrap's
+   landmarks.  Then (``sift_graph``) SIFT replayed
+   (``VisualOdometry.sift_features``) against op by op, at the
+   bootstrap's 512 rows and as a bank keyframe (read back to the host),
+   and the SIFT bootstrap replayed against ``bootstrap_eager``: each bit
+   for bit equal, with host ms, dispatches, device events and device ms;
+   two eager calls on one image bit for bit equal.
 B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
    frames, 1.25 laps of an 81 m circle, KITTI-05 K) at 376x1241,
    ``kitti_tuned_config()`` with the KLT bootstrap (stride 8) and in-step
@@ -106,7 +123,14 @@ B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
    compounding drift of 1.004 a frame injected into the trajectory and the
    bank (``T_CW``, ``lm_z``); the Sim(3) refinement's ATE must be below 0.85
    of the drifted ATE (the SE(3) one is printed).  The same stream on
-   float32 frames is run for its ATE.
+   float32 frames is run for its ATE.  Then (``phase_b_repeat``) the loop
+   closure once more in this process on the same stream
+   (``tools/diag_loop_repeat.loop_closure``: a bank of its own, the
+   verifier, the edges, the Sim(3) refinement): equal to the first run at
+   every stage, else the first stage where they differ; and the
+   verifier's first chunk replayed against op by op on the same draws,
+   bit for bit equal, with host ms, dispatches, device events and device
+   ms of each.
 C. The disk stream: phase B's 640 uint8 frames written as 8-bit gray PNGs
    (rows filtered None, Sub, Up, Average, Paeth in turn, by
    ``dataio.native_io.write_kitti``) with ``poses/05.txt`` in the KITTI
@@ -213,6 +237,7 @@ STREAM_BLOCK = 16  # 95 frames: 5 full blocks and one of 15 + 1 padded
 # in the same order, so only nondeterministic CUDA scatters may differ.
 STREAM_POS_TOL = 1e-3
 DEVICE_REPS = 50  # kernel calls queued behind one spin (device_time_ms)
+REPLAY_REPS = 5  # synced calls a host ms of a replayed or eager piece
 SPIN_CYCLES = 1 << 22  # first spin, ~2 ms at the H100's ~1.98 GHz
 PROFILE_START, PROFILE_STEPS = 40, 8  # main-path steps under torch.profiler
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -347,6 +372,45 @@ def device_time_ms(fn, reps=DEVICE_REPS):
         if cycles >= SPIN_CYCLES << 6:
             raise RuntimeError("the spin never covered the host's enqueue")
         cycles *= 2
+
+
+def bit_equal(xs, ys) -> bool:
+    """Two sequences of tensors equal bit for bit (NaN payloads included)."""
+    import torch
+
+    xs, ys = list(xs), list(ys)
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.detach().cpu().contiguous().view(-1).view(torch.uint8),
+            y.detach().cpu().contiguous().view(-1).view(torch.uint8))
+        for x, y in zip(xs, ys))
+
+
+def replayed_and_eager(replayed, eager):
+    """Host ms, device events, host dispatches and device ms of a replayed
+    call and of the same work op by op, both already run once by the
+    caller's bit-for-bit check.  Host ms: the replay's median of
+    ``REPLAY_REPS`` calls, each between two device syncs, and one such
+    call op by op (10-22k dispatches; each costs the gate ~0.1-0.3 s);
+    the rest from ``torch.profiler`` over one call of each."""
+    out = {}
+    for name, fn, reps in (("replayed", replayed, REPLAY_REPS),
+                           ("eager", eager, 1)):
+        dev_ms, events, dispatches = profile_calls(fn, reps=1)
+        out[name] = dict(host_ms=host_ms(fn, DEVICE, reps=reps, warmup=0),
+                         dispatches=dispatches, device_events=events,
+                         device_ms=dev_ms)
+    return out
+
+
+def graph_keys(cache):
+    """A graph cache's keys by their name: segments and capture seconds
+    (none on the CPU, where nothing is captured)."""
+    if cache is None:
+        return {}
+    return {str(key[0]): dict(segments=len(steps),
+                              capture_s=cache.capture_s[key])
+            for key, (steps, _) in cache.graphs.items()}
 
 
 # Operation counts of one LK feature at win 15 (225 window pixels), the same
@@ -615,6 +679,7 @@ def phase_main_path(scene, frames, vo, cfg, cam):
                          intermediate=dev_frames[1:b])
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    boot_launches = k2.klt_lk.launches
     statuses = [int(state.status)]
     poses = [state.T_CW.cpu().numpy()]
     step_ms = []
@@ -648,7 +713,8 @@ def phase_main_path(scene, frames, vo, cfg, cam):
                step_ms_median=statistics.median(step_ms),
                step_ms_mean=statistics.fmean(step_ms),
                launches=launches, launches_expected=expected,
-               launches_per_step=(launches - 3 * b) / n_steps,
+               launches_in_bootstrap=boot_launches,
+               launches_per_step=(launches - boot_launches) / n_steps,
                profile=profile)
     print("main_path " + json.dumps(res), flush=True)
     if not healthy(res):
@@ -736,6 +802,44 @@ def eager_path(dev_frames, cfg, cam):
             prof.stop()
     return dict(poses=poses, step_ms=step_ms,
                 profile=device_profile(prof, PROFILE_STEPS, "klt_lk_kernel"))
+
+
+def phase_bootstrap_graph(frames, vo):
+    """The main path's KLT bootstrap (frames 0..4) replayed (``bootstrap``:
+    the first frame's graph, one graph a hop, the geometry's segments)
+    against the same work op by op (``bootstrap_eager``), with the same
+    generator: bit for bit equal, 3 ``klt_lk`` launches a hop; host ms,
+    dispatches, device events and device ms of each."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    b = BOOTSTRAP_STRIDE
+    imgs = [torch.as_tensor(f).to(vo.device) for f in frames[:b + 1]]
+
+    def boot(fn):
+        return fn(imgs[0], imgs[b], intermediate=imgs[1:b],
+                  generator=runner.frame_generator(0, 0, vo.device))
+
+    k2.klt_lk.launches = 0
+    replayed = boot(vo.bootstrap)
+    launches = k2.klt_lk.launches
+    eager = boot(vo.bootstrap_eager)
+    res = dict(bit_equal=bit_equal(replayed.tensors(), eager.tensors()),
+               status=int(replayed.status),
+               landmarks=int(replayed.lm_valid.sum()), hops=b,
+               klt_lk_per_hop=launches / b, graphs=graph_keys(vo.fn_graphs),
+               **replayed_and_eager(lambda: boot(vo.bootstrap),
+                                    lambda: boot(vo.bootstrap_eager)))
+    print("bootstrap_graph " + json.dumps(res), flush=True)
+    if not res["bit_equal"]:
+        raise RuntimeError(f"the replayed bootstrap differs from the eager "
+                           f"one: {res}")
+    if launches != 3 * b:
+        raise RuntimeError(f"klt_lk launched {launches} times over {b} "
+                           f"replayed hops, expected {3 * b}")
+    return res
 
 
 def phase_presets(smi):
@@ -874,18 +978,31 @@ def phase_stream(scene, frames, vo):
     return res
 
 
+def kernel_launches():
+    """Both LK wrappers' launch counts."""
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
+    from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
+
+    return dict(klt_lk=k2.klt_lk.launches, klt_v1=v1.klt_v1.launches)
+
+
 class CountingBootstrap:
-    """Wraps ``vo.bootstrap`` to count its calls, KLT hops and landmarks."""
+    """Wraps ``vo.bootstrap`` to count its calls, KLT hops and landmarks,
+    and the LK kernels' launches inside the calls (``launches``)."""
 
     def __init__(self, vo):
         self.inner = vo.bootstrap
         self.sift = vo.config.bootstrap_method == "sift"
         self.calls = []  # (KLT hops, status, landmarks) per call
+        self.launches = dict.fromkeys(kernel_launches(), 0)
         vo.bootstrap = self
 
     def __call__(self, img0, img1, intermediate=(), generator=None):
+        before = kernel_launches()
         state = self.inner(img0, img1, intermediate=intermediate,
                            generator=generator)
+        for k, n in kernel_launches().items():
+            self.launches[k] += n - before[k]
         hops = 0 if self.sift else len(intermediate) + 1
         self.calls.append((hops, int(state.status),
                            int(state.lm_valid.sum())))
@@ -952,7 +1069,8 @@ class CountingBatch:
 
 def run_path(scene, frames, vo, num_frames):
     """``runner.run_sequence`` over the first ``num_frames`` frames; the
-    kernels' counts are zeroed just before and read just after."""
+    kernels' counts are zeroed just before and read just after, those
+    inside the bootstraps apart (``launches_in_bootstraps``)."""
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas as v1
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.pipeline import runner
@@ -965,13 +1083,14 @@ def run_path(scene, frames, vo, num_frames):
         vo, ((i, frames[i]) for i in range(num_frames)), seed=0,
         bootstrap_stride=BOOTSTRAP_STRIDE, recover=True)
     wall_s = time.perf_counter() - t0
-    counts = dict(klt_lk=k2.klt_lk.launches, klt_v1=v1.klt_v1.launches)
+    counts = kernel_launches()
     recs = result.records
     res = trajectory_health(scene, [r.frame for r in recs], result.positions,
                             [r.status for r in recs])
     step_ms = [r.wall_ms for r in recs[1:] if r.frame >= TIMED_START]
     res.update(
         backend=vo.klt_backend, wall_s=wall_s, launches=counts,
+        launches_in_bootstraps=boots.launches,
         launches_expected=3 * boots.hops + 3 * (len(recs) - 1),
         bootstrap_hops=boots.hops, steps=len(recs) - 1,
         bootstrap_calls=len(boots.calls), recoveries=boots.recoveries,
@@ -1008,6 +1127,10 @@ def phase_v1_path(scene, frames, cfg, cam):
     if res["launches"]["klt_v1"] != res["launches_expected"]:
         raise RuntimeError(f"klt_v1 launched {res['launches']['klt_v1']} "
                            f"times, expected {res['launches_expected']}")
+    if res["launches_in_bootstraps"]["klt_v1"] != 3 * res["bootstrap_hops"]:
+        raise RuntimeError(f"klt_v1 launched {res['launches_in_bootstraps']}"
+                           f" times in {res['bootstrap_hops']} bootstrap "
+                           f"hops, expected 3 a hop")
     if res["launches"]["klt_lk"]:
         raise RuntimeError("the v1 path launched klt_lk")
     if not healthy(res):
@@ -1118,15 +1241,14 @@ def phase_sift(scene, frames, cam):
     f1 = sift.detect_and_compute(img1, **kw)
     _, ok = match.match_ratio(f0.desc, f0.valid, f1.desc, f1.valid,
                               ratio=sc.ratio)
-    dev_ms, launches, _ = profile_calls(
-        lambda: sift.detect_and_compute(img0, **kw))
     paired, _, dpos, dori = pair_keypoints(
         f0, sift.detect_and_compute(torch.as_tensor(frames[0]), **kw))
+    graph_res = sift_graph(cfg, cam, img0, img1, kw)
+    eager = graph_res["full"]["eager"]
     sift_res = dict(
         shape=list(IMAGE_SHAPE), max_features=kw["max_features"],
-        host_ms=host_ms(lambda: sift.detect_and_compute(img0, **kw), DEVICE,
-                        reps=5, warmup=1),
-        device_ms=dev_ms, launches=launches,
+        host_ms=eager["host_ms"], device_ms=eager["device_ms"],
+        launches=eager["device_events"],
         valid=[int(f0.valid.sum()), int(f1.valid.sum())],
         ratio_matches=int(ok.sum()),
         cpu_pairs=int(paired.sum()), cpu_pos_max=float(dpos[paired].max()),
@@ -1137,12 +1259,66 @@ def phase_sift(scene, frames, cam):
     vo = VisualOdometry(cam, cfg, DEVICE, seed=0)
     res = run_path(scene, frames, vo, NUM_FRAMES)
     print("sift_path " + json.dumps(res), flush=True)
-    res["sift"] = sift_res
+    res.update(sift=sift_res, sift_graph=graph_res)
     if res["launches"]["klt_lk"] != res["launches_expected"]:
         raise RuntimeError(f"klt_lk launched {res['launches']['klt_lk']} "
                            f"times, expected {res['launches_expected']}")
     if not healthy(res):
         raise RuntimeError(f"SIFT bootstrap path unhealthy: {res}")
+    return res
+
+
+def sift_graph(cfg, cam, img0, img1, kw):
+    """Phase A's SIFT replayed (``VisualOdometry.sift_features``) against
+    op by op (``sift.detect_and_compute``): the full-resolution call of the
+    bootstrap (``max_candidates`` rows), a keyframe of the bank
+    (``LOOP_FEATURES`` rows, read back to the host as ``KeyframeBank``
+    does), and the SIFT bootstrap (``bootstrap`` against
+    ``bootstrap_eager``): each bit for bit equal, host ms, dispatches,
+    device events and device ms.  Two eager calls on one image must be
+    bit-equal too (the histogram and descriptor sums in a fixed order)."""
+    from monocular_visual_odometry_va4mr_torch.ops import sift
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        VisualOdometry)
+
+    vo = VisualOdometry(cam, cfg, DEVICE, seed=0)
+    M, F = kw["max_features"], LOOP_FEATURES
+
+    def full():
+        return vo.sift_features(img0, M)
+
+    def full_eager():
+        return sift.detect_and_compute(img0, **kw)
+
+    def keyframe():
+        return vo.sift_features(img0, F, host=True)
+
+    def keyframe_eager():
+        return [t.cpu() for t in sift.detect_and_compute(
+            img0, **dict(kw, max_features=F))]
+
+    def boot(fn):
+        return fn(img0, img1,
+                  generator=runner.frame_generator(0, 0, vo.device))
+
+    res = dict(
+        eager_twice_equal=bit_equal(full_eager(), full_eager()),
+        full=dict(bit_equal=bit_equal(full(), full_eager()),
+                  **replayed_and_eager(full, full_eager)),
+        keyframe=dict(bit_equal=bit_equal(keyframe(), keyframe_eager()),
+                      **replayed_and_eager(keyframe, keyframe_eager)),
+        bootstrap=dict(bit_equal=bit_equal(
+            boot(vo.bootstrap).tensors(), boot(vo.bootstrap_eager).tensors()),
+            **replayed_and_eager(lambda: boot(vo.bootstrap),
+                                 lambda: boot(vo.bootstrap_eager))),
+        graphs=graph_keys(vo.fn_graphs))
+    print("sift_graph " + json.dumps(res), flush=True)
+    if not (res["eager_twice_equal"] and res["full"]["bit_equal"]
+            and res["keyframe"]["bit_equal"]
+            and res["bootstrap"]["bit_equal"]):
+        raise RuntimeError(f"replayed SIFT differs from op by op, or SIFT "
+                           f"from itself: {res}")
     return res
 
 
@@ -1200,21 +1376,12 @@ def drifted_copies(records, bank, drift):
 
 
 def loop_vo(scene):
-    """Phase B's VO: ``kitti_tuned_config()`` with the KLT bootstrap and
-    in-step BA off (``tools/bench_stream_2761.py``'s stream at this
-    length)."""
-    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
-    from monocular_visual_odometry_va4mr_torch.core.config import (
-        kitti_tuned_config)
-    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
-        VisualOdometry)
+    """Phase B's VO (``tools/diag_loop_repeat.loop_vo``):
+    ``kitti_tuned_config()`` with the KLT bootstrap and in-step BA off
+    (``tools/bench_stream_2761.py``'s stream at this length)."""
+    from monocular_visual_odometry_va4mr_torch.tools import diag_loop_repeat
 
-    cfg = kitti_tuned_config().replace(image_shape=scene.image_shape,
-                                       bootstrap_method="klt")
-    cfg = cfg.replace(
-        detector=dataclasses.replace(cfg.detector, quality_level=0.03),
-        ba=dataclasses.replace(cfg.ba, every=0))
-    return VisualOdometry(Camera.from_matrix(scene.K), cfg, DEVICE, seed=0)
+    return diag_loop_repeat.loop_vo(scene, DEVICE)
 
 
 def phase_loop(ctx):
@@ -1228,6 +1395,7 @@ def phase_loop(ctx):
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.pipeline import (
         posegraph_runner as pr, runner, scan_driver)
+    from monocular_visual_odometry_va4mr_torch.tools import diag_loop_repeat
 
     t0 = time.perf_counter()
     scene = synthetic.make_loop_scene(seed=SEED, num_frames=LOOP_FRAMES,
@@ -1281,17 +1449,17 @@ def phase_loop(ctx):
     cands = pr.retrieve_candidates(bank)
     loops_t = Timed(pr, "detect_loops")
     verify_t = Timed(pr, "verify_pairs")
-    chunk_t = Timed(pr, "verify_geometry")  # once a chunk, under vmap
+    chunk_t = Timed(pr, "verify_chunk_replayed")  # a replay a chunk
     solve_t = Timed(posegraph_sim3, "optimize")
     prune_t = Timed(posegraph_sim3, "optimize_consistent")
     try:
-        t0 = time.perf_counter()
-        refined = pr.refine_stream_trajectory(outs, fids, bank,
-                                              method="sim3", verbose=True)
-        refine_s = time.perf_counter() - t0
+        _, record, refine_s = diag_loop_repeat.loop_closure(
+            vo, outs, fids, kf_images, bank=bank)
     finally:
         for t in (loops_t, verify_t, chunk_t, solve_t, prune_t):
             t.restore()
+    ctx["loop"].update(images=kf_images, record=record)
+    refined = record["refined"]
     loops = loops_t.results[0]
     far = [(kfs[a].frame, kfs[b_].frame) for a, b_, *_ in loops
            if kfs[b_].frame - kfs[a].frame >= LOOP_MIN_GAP]
@@ -1314,6 +1482,8 @@ def phase_loop(ctx):
         verify_batched_calls=len(chunk_t.seconds),
         verify_ms_per_chunk=1e3 * verify_t.seconds[0] / max(
             1, -(-len(cands) // pr.VERIFY_CHUNK)),
+        verify_replay_ms_median=1e3 * statistics.median(chunk_t.seconds)
+        if chunk_t.seconds else None,
         solves=n_solves, solve_s=sum(solve_t.seconds),
         gn_ms_per_iteration=1e3 * sum(solve_t.seconds) / max(
             1, sum(len(costs) for _, costs in solve_t.results)),
@@ -1349,6 +1519,57 @@ def phase_loop(ctx):
     fl["recoveries"] = info_f.recoveries
     print("loop_stream_float32 " + json.dumps(fl), flush=True)
     res.update(posegraph=pg, drift=drift, float32=fl)
+    return res
+
+
+def phase_b_repeat(ctx):
+    """Phase B's loop closure once more on its stream, in the same process
+    (``tools/diag_loop_repeat.loop_closure``: a bank of its own, the
+    verifier, the edges, the Sim(3) refinement): equal to phase B's run at
+    every stage, else the first stage where they differ.  Then the
+    verifier's first chunk replayed (``verify_chunk_replayed``) against op
+    by op (``verify_chunk``) on the same draws: bit for bit equal; host ms,
+    dispatches, device events and device ms of each."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.ops import ransac
+    from monocular_visual_odometry_va4mr_torch.pipeline import (
+        posegraph_runner as pr)
+    from monocular_visual_odometry_va4mr_torch.tools import diag_loop_repeat
+
+    lp = ctx["loop"]
+    vo = lp["vo"]
+    bank, again, seconds = diag_loop_repeat.loop_closure(
+        vo, lp["outs"], lp["fids"], lp["images"])
+    first = diag_loop_repeat.first_difference(lp["record"], again)
+    res = dict(equal=first is None, first_difference=first,
+               phase_b=diag_loop_repeat.summary(lp["record"]),
+               again=diag_loop_repeat.summary(again), seconds=seconds)
+
+    chunk = pr.retrieve_candidates(bank)[:pr.VERIFY_CHUNK]
+    inputs = pr.chunk_inputs(bank.keyframes, chunk, vo.device)
+    gen = torch.Generator(device=vo.device).manual_seed(0)
+    draws = torch.stack([ransac.draw_uniforms(gen, 300, 5) for _ in chunk])
+
+    def replayed():
+        return pr.verify_chunk_replayed(vo, vo.cam, inputs, draws,
+                                        threshold_px=1.5)
+
+    def eager():
+        return [t.cpu() for t in pr.verify_chunk(
+            vo.cam, *inputs, draws, ratio=vo.config.sift.ratio,
+            threshold_px=1.5, select=ransac.select_minimal_sets)]
+
+    res["verify_chunk"] = dict(pairs=len(chunk),
+                               bit_equal=bit_equal(replayed(), eager()),
+                               **replayed_and_eager(replayed, eager))
+    res["graphs"] = graph_keys(vo.fn_graphs)
+    print("phase_b_repeat " + json.dumps(res), flush=True)
+    if first is not None:
+        raise RuntimeError(f"phase B's loop closure did not repeat: {res}")
+    if len(chunk) != pr.VERIFY_CHUNK or not res["verify_chunk"]["bit_equal"]:
+        raise RuntimeError(f"the replayed verifier chunk differs from the "
+                           f"eager one: {res}")
     return res
 
 
@@ -1839,7 +2060,8 @@ def lockstep(vo, seqs, truth):
         sequences=S, lockstep_s=wall_s, batched_steps=batches.calls,
         launches=launches, bootstrap_hops=boots.hops,
         launches_expected=3 * (batches.calls + boots.hops),
-        launches_per_batched_step=(launches - 3 * boots.hops)
+        launches_in_bootstraps=boots.launches["klt_lk"],
+        launches_per_batched_step=(launches - boots.launches["klt_lk"])
         / batches.calls,
         ms_per_batched_frame=ms, frames_per_s=1e3 * S / ms,
         peak_device_mb=peak_mb,
@@ -1901,7 +2123,7 @@ def lockstep(vo, seqs, truth):
     return res
 
 
-def kernel_entry(name, cases, launches, per_step, launches_by_path,
+def kernel_entry(name, cases, launches, per_step, per_hop, launches_by_path,
                  per_batched_step=None):
     """The kernel's line: its numbers at the main path's full resolution,
     and beside them each case's (every shape of every path) device time,
@@ -1910,10 +2132,12 @@ def kernel_entry(name, cases, launches, per_step, launches_by_path,
     equals ``call_ms``; ``device_ms`` is the kernel on the card alone.
     ``launches``: the main path's run; ``launches_by_path``: every path's;
     ``per_step``, ``per_batched_step``: launches per step and per batched
-    step (by run) in those runs, bootstrap hops left out."""
+    step (by run) in those runs, the launches inside the bootstrap calls
+    (counted around each call) left out; ``per_hop``: those launches per
+    bootstrap hop."""
     full = cases[0]
     return dict(name=name, route="cuda", **KERNELS[name], launches=launches,
-                launches_per_step=per_step,
+                launches_per_step=per_step, launches_per_hop=per_hop,
                 launches_per_batched_step=per_batched_step,
                 launches_by_path=launches_by_path,
                 max_abs_err=max(c["pos_max"] for c in cases),
@@ -1971,6 +2195,7 @@ def main():
                                                      batch_inputs=batch_inputs)),
             ("main_path", lambda: phase_main_path(scene, frames, vo, cfg,
                                                   cam)),
+            ("bootstrap_graph", lambda: phase_bootstrap_graph(frames, vo)),
             ("presets", lambda: phase_presets(smi)),
             ("stream_path", lambda: phase_stream(scene, frames, vo)),
             ("kernels_klt_v1", lambda: phase_kernels(
@@ -1980,6 +2205,7 @@ def main():
             ("xla_path", lambda: phase_xla(scene, frames, cfg, cam)),
             ("v1_path", lambda: phase_v1_path(scene, frames, cfg, cam)),
             ("loop", lambda: phase_loop(ctx)),
+            ("phase_b_repeat", lambda: phase_b_repeat(ctx)),
             ("disk", lambda: phase_disk(ctx)),
             ("stress", phase_stress),
             ("parallel", lambda: phase_parallel(ctx, scene, frames))):
@@ -1993,9 +2219,11 @@ def main():
     lock = {f"lockstep_{k}": res["parallel"][k]
             for k in ("s2", f"s{MULTI_SEQS}")}
     v1_launches = v1_res["launches"]["klt_v1"]
+    v1_in_boots = v1_res["launches_in_bootstraps"]["klt_v1"]
     print(json.dumps({"kernels": [
         kernel_entry("klt_lk", lk_cases, main_res["launches"],
-                     main_res["launches_per_step"], {
+                     main_res["launches_per_step"],
+                     res["bootstrap_graph"]["klt_lk_per_hop"], {
                          "main_path": main_res["launches"],
                          f"presets_{PRESET}": res["presets"]["path"][
                              "launches"],
@@ -2003,8 +2231,9 @@ def main():
                      {k: v["launches_per_batched_step"]
                       for k, v in lock.items()}),
         kernel_entry("klt_v1", v1_cases, v1_launches,
-                     (v1_launches - 3 * v1_res["bootstrap_hops"])
-                     / v1_res["steps"], {"v1_path": v1_launches})]}))
+                     (v1_launches - v1_in_boots) / v1_res["steps"],
+                     v1_in_boots / v1_res["bootstrap_hops"],
+                     {"v1_path": v1_launches})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

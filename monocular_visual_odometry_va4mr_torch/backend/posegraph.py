@@ -4,11 +4,15 @@
 Fixed edge tables (i, j, measured T_j T_i^-1, weight; weight 0 disables an
 edge); residual r_e = log(T_meas^-1 T_j T_i^-1) under left-multiplicative
 updates exp(xi) T; exact edge Jacobians at xi = 0 by forward-mode autodiff
-(:func:`edge_jacobians`); the normal equations
-assembled block by block into a dense (N*d, N*d) system by
-``index_put_(accumulate=True)``; gauge on node 0, LM damping, an optional
-Huber IRLS factor; ``torch.linalg.solve`` in float32.  The Gauss-Newton
-loop is a Python loop that returns the cost of every iteration.
+(:func:`edge_jacobians`); the normal equations and the gradient assembled
+block by block into a dense (N*d, N*d) system and an (N, d) one by
+``index_put_(accumulate=True)``: on the CPU it adds in index order, on a
+CUDA device its kernel sums each node's terms in a fixed order (a stable
+sort of the indices, then each run of equal ones in turn), where
+``index_add_`` would add in atomic order and two solves of one graph could
+differ; gauge on node 0, LM damping, an optional Huber IRLS factor;
+``torch.linalg.solve`` in float32.  The Gauss-Newton loop is a Python loop
+that returns the cost of every iteration.
 
 :func:`gauss_newton` is shared with the Sim(3) graph
 (``backend/posegraph_sim3.py``), which differs only in the group.
@@ -138,8 +142,10 @@ def gauss_newton(graph, residual: Callable, exp: Callable, dof: int, *,
         Hb.index_put_((ii, jj), HtH_ij, accumulate=True)
         Hb.index_put_((jj, ii), HtH_ij.transpose(-1, -2), accumulate=True)
         g = torch.zeros((N, dof), dtype=dt, device=dev)
-        g.index_add_(0, ii, torch.einsum("eai,ea->ei", Ji, r))
-        g.index_add_(0, jj, torch.einsum("eai,ea->ei", Jj, r))
+        g.index_put_((ii,), torch.einsum("eai,ea->ei", Ji, r),
+                     accumulate=True)
+        g.index_put_((jj,), torch.einsum("eai,ea->ei", Jj, r),
+                     accumulate=True)
 
         # Gauge: freeze node 0.
         Hb[0] = 0.0

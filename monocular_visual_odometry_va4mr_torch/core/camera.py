@@ -70,6 +70,11 @@ class Camera(NamedTuple):
         return torch.stack([x, y], -1)
 
 
+def world_to_cam(T_CW: torch.Tensor, xyz_w: torch.Tensor) -> torch.Tensor:
+    """Apply a camera-from-world transform (4, 4) to points (..., 3)."""
+    return matmul(xyz_w, T_CW[:3, :3].T) + T_CW[:3, 3]
+
+
 def projection_matrix(cam: Camera, T_CW: torch.Tensor) -> torch.Tensor:
     """3x4 projection P = K [R|t] from camera-from-world (..., 4, 4)."""
     return matmul(cam.matrix(T_CW.device), T_CW[..., :3, :4])

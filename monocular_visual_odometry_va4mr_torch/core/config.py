@@ -106,16 +106,16 @@ class KLTConfig:
     # latency (advisor round-2 'low': the cap is now documented here and
     # asserted in ops/klt_pallas2.py).
     num_iters: int = 20
-    # Mid-level (quarter-res) pass iteration cap for the pallas multilevel
-    # chain; 0 = same as num_iters.  The mid pass only pulls the coarse
-    # prior within the full-res pass's +-8 px guard.
-    # LK iterations on the Pallas chain's MID plane.  Geometry-dependent,
-    # not a TPU constant (measured round 5 on-chip, 95-frame runs):
-    # 376x1241 (KITTI) and 480x640 (Parking) track best with the mid pass
-    # OFF (0.65/0.91 ATE; turning it on regressed them to 1.17 / LOST),
-    # while 600x800 (Malaga) NEEDS it (mid_iters=0 loses the whole
-    # bootstrap chain: 5 landmarks -> permanent LOST vs 29 -> healthy,
-    # ATE 1.08).  Each dataset preset pins its measured value.
+    # LK iterations on the Pallas chain's MID (quarter-res) plane; 0 means
+    # num_iters.  No value turns the mid pass off: the chain always runs it
+    # (ops/klt_pallas2.py::track_multilevel).  The mid pass only pulls the
+    # coarse prior within the full-res pass's +-8 px guard.  The best value
+    # depends on the geometry (the reference's round-5 sweep on its TPU,
+    # 95-frame runs): 376x1241 (KITTI) and 480x640 (Parking) tracked best
+    # at 0, the mid pass at num_iters (0.65 / 0.91 ATE; the nonzero cap
+    # swept regressed them to 1.17 / LOST), while 600x800 (Malaga) needs 4
+    # (at 0 its bootstrap chain kept 5 landmarks and stayed LOST, at 4 it
+    # kept 29, ATE 1.08).  Each dataset preset pins its measured value.
     mid_iters: int = 0
     eps: float = 0.01
     min_eig_threshold: float = 1e-4
@@ -310,9 +310,9 @@ def tune_for_tpu(cfg: PipelineConfig) -> PipelineConfig:
 def kitti_tuned_config() -> PipelineConfig:
     """KITTI preset at the benched TPU operating point (see tune_for_tpu).
 
-    mid_iters=0 is part of the swept point (pure latency on THIS geometry;
-    see KLTConfig.mid_iters) and is pinned here rather than in
-    tune_for_tpu because it does not transfer to other image shapes.
+    mid_iters=0 (the mid pass at num_iters; see KLTConfig.mid_iters) is
+    part of the swept point and is pinned here rather than in tune_for_tpu
+    because it does not transfer to other image shapes.
     """
     cfg = tune_for_tpu(kitti_config())
     return cfg.replace(klt=dataclasses.replace(cfg.klt, mid_iters=0))

@@ -39,7 +39,8 @@ root.  This module alone picks their form, by the tensor's device and
 
 ``constant`` gives a small constant tensor on a device, made there once and
 kept, so a captured step (``pipeline/vo.py``) reads it and copies nothing
-from the host.
+from the host; ``kept`` does the same for a tensor made on the CPU by a
+function, keyed by the caller.
 """
 from __future__ import annotations
 
@@ -49,19 +50,26 @@ import threading
 import numpy as np
 import torch
 
-_CONSTANTS = {}
-
-
 def constant(values, device) -> torch.Tensor:
     """The float32 tensor of the nested list ``values`` on ``device``, made
     at the first call for these values and device and the same tensor at
-    every later one.  Callers never write to it."""
+    every later one (``kept``).  Callers never write to it."""
     a = np.asarray(values, np.float32)
+    return kept(("constant", a.shape, a.tobytes()), device,
+                lambda: torch.from_numpy(a))
+
+
+_KEPT = {}
+
+
+def kept(key, device, make) -> torch.Tensor:
+    """``make()``, a tensor made on the CPU, copied to ``device`` at the
+    first call for ``key`` and ``device``, and the same tensor at every
+    later one.  Callers never write to it."""
     device = torch.device("cpu" if device is None else device)
-    key = (a.shape, a.tobytes(), device)
-    if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.from_numpy(a).to(device)
-    return _CONSTANTS[key]
+    if (key, device) not in _KEPT:
+        _KEPT[key, device] = make().to(device)
+    return _KEPT[key, device]
 
 
 def _safe_det(det: torch.Tensor) -> torch.Tensor:

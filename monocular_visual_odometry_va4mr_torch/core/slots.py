@@ -61,3 +61,11 @@ def stable_top_k(x: torch.Tensor, k: int):
     ``torch.topk`` does not promise."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k]
+
+
+def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Top-k of ``scores`` restricted to ``mask``, equal scores in ascending
+    index order (``lax.top_k``'s); returns (values, indices, valid)."""
+    neg = torch.finfo(scores.dtype).min
+    vals, idx = stable_top_k(torch.where(mask, scores, neg), k)
+    return vals, idx, vals > neg

@@ -108,11 +108,18 @@ class FrameState:
     def with_tensors(self, tensors: Sequence[torch.Tensor]) -> "FrameState":
         """A state of this one's layout made of ``tensors`` (as ``tensors``
         lists them); ``host_frame`` is not carried."""
+        return FrameState.from_tensors(tensors, len(self.prev_pyramid))
+
+    @staticmethod
+    def from_tensors(tensors: Sequence[torch.Tensor],
+                     levels: int) -> "FrameState":
+        """The state of ``tensors`` (as ``tensors`` lists them) with a
+        pyramid of ``levels`` planes; no ``host_frame``."""
         it = iter(tensors)
         kw = {}
-        for f in dataclasses.fields(self):
+        for f in dataclasses.fields(FrameState):
             if f.name == "prev_pyramid":
-                kw[f.name] = tuple(next(it) for _ in self.prev_pyramid)
+                kw[f.name] = tuple(next(it) for _ in range(levels))
             else:
                 kw[f.name] = next(it)
         return FrameState(**kw)

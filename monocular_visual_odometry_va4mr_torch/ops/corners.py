@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.config import DetectorConfig
 from ..core.slots import stable_top_k
 from . import image as imops
 
@@ -98,3 +99,12 @@ def detect_corners(
         top_vals = F.pad(top_vals, (0, pad), value=neg)
         valid = F.pad(valid, (0, pad))
     return uv, top_vals, valid
+
+
+def detect_corners_config(img: torch.Tensor, cfg: DetectorConfig,
+                          border: int = 4):
+    """``detect_corners`` with the knobs of a ``DetectorConfig``."""
+    return detect_corners(
+        img, max_corners=cfg.max_corners, quality_level=cfg.quality_level,
+        cell=int(cfg.min_dist), block_size=cfg.block_size,
+        use_harris=cfg.use_harris, harris_k=cfg.harris_k, border=border)

@@ -113,8 +113,7 @@ def _gauss_jordan10(A: torch.Tensor) -> torch.Tensor:
         piv = A[:, i, i]
         inv = torch.where(piv.abs() > 1e-20, 1.0 / piv, torch.zeros_like(piv))
         A[:, i] = A[:, i] * inv[:, None]
-        fac = A[:, :, i].clone()
-        fac[:, i] = 0.0
+        fac = torch.where(row_ids == i, 0.0, A[:, :, i])
         A = A - fac[:, :, None] * A[:, i][:, None, :]
     return A
 

@@ -3,15 +3,16 @@ image pyramids, gradients, box filter, bilinear sampling.
 
 The flat (full, /mid, /coarse) box pyramid feeds the Pallas-style KLT
 chain; the Gaussian pyramid and central gradients feed the gather tracker
-(``ops/klt.py``).  ``scharr_gradients`` has no caller in either package and
-is not ported.
+(``ops/klt.py``).  Filter taps and window grids live on the image's device,
+made there once (``core.linalg.constant`` / ``kept``), so a captured graph
+(``pipeline/vo.py``) copies nothing from the host.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..core.linalg import constant
+from ..core.linalg import constant, kept
 
 
 def gaussian_kernel_1d(sigma: float,
@@ -19,7 +20,7 @@ def gaussian_kernel_1d(sigma: float,
     """Normalized 1-D Gaussian taps (static length)."""
     if radius is None:
         radius = max(1, int(3.0 * sigma + 0.5))
-    x = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device="cpu")
     k = torch.exp(-0.5 * (x / sigma) ** 2)
     return k / torch.sum(k)
 
@@ -40,7 +41,8 @@ def _conv_sep(img: torch.Tensor, kx: torch.Tensor,
 
 def gaussian_blur(img: torch.Tensor, sigma: float,
                   radius: int | None = None) -> torch.Tensor:
-    k = gaussian_kernel_1d(sigma, radius)
+    k = kept(("gaussian", sigma, radius), img.device,
+             lambda: gaussian_kernel_1d(sigma, radius))
     return _conv_sep(img, k, k)
 
 
@@ -59,6 +61,14 @@ def build_pyramid(img: torch.Tensor, num_levels: int):
     for _ in range(num_levels - 1):
         levels.append(pyr_down(levels[-1]).contiguous())
     return tuple(levels)
+
+
+def scharr_gradients(img: torch.Tensor):
+    """Scharr 3x3 gradients (what cv2.calcOpticalFlowPyrLK uses internally,
+    scaled by 1/32)."""
+    smooth = constant([3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0], img.device)
+    diff = constant([-1.0, 0.0, 1.0], img.device)
+    return _conv_sep(img, diff, smooth), _conv_sep(img, smooth, diff)
 
 
 def central_gradients(img: torch.Tensor):
@@ -90,10 +100,13 @@ def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
             + img[y1i, x1i] * fx * fy)
 
 
-def window_coords(window: int) -> torch.Tensor:
-    """(window*window, 2) relative (dx, dy) offsets centered on 0."""
+def window_coords(window: int, device=None) -> torch.Tensor:
+    """(window*window, 2) relative (dx, dy) offsets centered on 0, on
+    ``device`` (made there once)."""
+    if device is not None:
+        return kept(("window", window), device, lambda: window_coords(window))
     r = (window - 1) / 2.0
-    ax = torch.arange(window, dtype=torch.float32) - r
+    ax = torch.arange(window, dtype=torch.float32, device="cpu") - r
     dy, dx = torch.meshgrid(ax, ax, indexing="ij")
     return torch.stack([dx.reshape(-1), dy.reshape(-1)], -1)
 

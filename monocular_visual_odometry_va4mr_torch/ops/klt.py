@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.config import KLTConfig
 from . import image as imops
 
 
@@ -161,3 +162,12 @@ def track_features(
     ok = ok & (resid < max_residual)
     return new_pts, ok & valid, resid
 
+
+
+def track_features_config(prev_pyr, next_pyr, pts, valid, cfg: KLTConfig):
+    """``track_features`` with the knobs of a ``KLTConfig``."""
+    return track_features(
+        prev_pyr, next_pyr, pts, valid, window=cfg.window,
+        num_iters=cfg.num_iters, eps=cfg.eps,
+        min_eig_threshold=cfg.min_eig_threshold,
+        max_residual=cfg.max_residual)

@@ -299,8 +299,8 @@ def track_multilevel(
     by default or ``klt_pallas.track_features_pallas``.
 
     ``mid_iters`` = 0 means the mid pass runs ``num_iters`` iterations, as
-    the reference's code does (``klt_pallas2.py:509``); it does NOT turn the
-    mid pass off, whatever ``KLTConfig.mid_iters``' comment says."""
+    the reference's code does (``klt_pallas2.py:509``); no value turns the
+    mid pass off (``KLTConfig.mid_iters``)."""
     full_p, mid_p = prev_pyr[0], prev_pyr[1]
     H, _ = full_p.shape
     mid_scale = float(round(H / mid_p.shape[0]))

@@ -11,9 +11,14 @@ Where the port departs from the reference's code (not its results):
   * the orientation and descriptor stage samples, for each keypoint, only
     the level it keeps (the reference computes all ``s`` levels for every
     keypoint and gathers one): the same arithmetic on the same samples;
-  * the histogram and descriptor sums are ``scatter_add_``: in the
-    reference's order on the CPU, in atomic order on a CUDA device, where an
-    argmax between two equal-looking bins can flip an orientation;
+  * the histogram and descriptor sums are ``scatter_add_`` on the CPU, in
+    the reference's order; on a CUDA device, where ``scatter_add_`` adds in
+    atomic order (two calls on one image could differ, and an argmax
+    between two near-equal bins flip an orientation), they are sums in a
+    fixed order (``_fixed_order``): the histogram a one-hot (K, 289, 36)
+    summed over the samples, the descriptor a one-hot over its 8
+    orientation bins gathered by spatial cell (each cell takes 128 of the
+    2048 corner-sample terms) and summed;
   * the per-octave top-k over the DoG stack is ``torch.topk``, whose order
     among equal scores is not ``lax.top_k``'s; only rows of score 0 (never
     valid) tie in practice.
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import linalg
+from ..core.linalg import kept
 from ..core.slots import stable_top_k
 from . import image as imops
 
@@ -203,18 +209,36 @@ def _peak_theta(hist: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((b + off) / 36.0) * 2 * math.pi - math.pi
 
 
+def _fixed_order(t: torch.Tensor) -> bool:
+    """Whether the binned sums take their fixed-order form: off the CPU,
+    where ``scatter_add_`` adds in atomic order."""
+    return t.device.type != "cpu"
+
+
+def _one_hot_sum(bins: torch.Tensor, values: torch.Tensor, n: int,
+                 dim: int) -> torch.Tensor:
+    """Sum of ``values`` into ``n`` bins by ``bins`` (same shape), over
+    dimension ``dim``: a one-hot of the bins, a trailing axis of ``n``,
+    summed by ``torch.sum``, whose order is fixed by the shape."""
+    hot = bins[..., None] == torch.arange(n, device=bins.device)
+    return torch.where(hot, values[..., None], 0.0).sum(dim)
+
+
 def _orientations(mag, ang, li, xy, sig):
     """Dominant and secondary orientation (theta1, theta2, has2) of each
     keypoint from a 36-bin histogram over 17x17 samples."""
-    grid = imops.window_coords(17).to(xy.device)  # (289, 2) in [-8, 8]
+    grid = imops.window_coords(17, xy.device)  # (289, 2) in [-8, 8]
     coords = xy[:, None, :] + grid[None] * (0.75 * sig)[:, None, None]
     m = _sample_levels(mag, li, coords)
     a = _sample_levels(ang, li, coords)
     w = torch.exp(-torch.sum((grid * 0.75) ** 2, -1) / (2 * (1.5 ** 2)))
     bins = torch.remainder(
         torch.floor((a / (2 * math.pi) + 0.5) * 36).to(torch.int64), 36)
-    hist = torch.zeros((xy.shape[0], 36), dtype=m.dtype, device=m.device)
-    hist.scatter_add_(1, bins, m * w)
+    if _fixed_order(m):
+        hist = _one_hot_sum(bins, m * w, 36, 1)
+    else:
+        hist = torch.zeros((xy.shape[0], 36), dtype=m.dtype, device=m.device)
+        hist.scatter_add_(1, bins, m * w)
     # Smooth the circular histogram twice.
     for _ in range(2):
         hist = (torch.roll(hist, 1, 1) + hist + torch.roll(hist, -1, 1)) / 3.0
@@ -235,7 +259,7 @@ def _descriptors(mag, ang, li, xy, sig, theta):
     """4x4x8 descriptors of 16x16 samples in each keypoint's rotated frame,
     trilinearly binned, normalized, clipped at 0.2 and renormalized."""
     D = 16
-    dgrid = imops.window_coords(D).to(xy.device)  # (256, 2) in [-7.5, 7.5]
+    dgrid = imops.window_coords(D, xy.device)  # (256, 2) in [-7.5, 7.5]
     c, s_ = torch.cos(theta), torch.sin(theta)
     rot = torch.stack([torch.stack([c, -s_], -1),
                        torch.stack([s_, c], -1)], -2)  # (K, 2, 2)
@@ -246,32 +270,62 @@ def _descriptors(mag, ang, li, xy, sig, theta):
     w = torch.exp(-torch.sum(dgrid ** 2, -1) / (2 * (0.5 * D) ** 2))
     mw = m * w
 
-    cell = (dgrid + 8.0) / 4.0 - 0.5  # cell coords in [-0.5, 3.5]
-    cx, cy = cell[:, 0], cell[:, 1]
+    cx0, cy0, cx, cy = _cell_coords(dgrid)
     ob = (a / (2 * math.pi) + 1.5) * 8.0  # orientation in bins (mod 8)
-    cx0, cy0, ob0 = torch.floor(cx), torch.floor(cy), torch.floor(ob)
-    idx, val = [], []
+    ob0 = torch.floor(ob)
+    io, val = [], []
     for dxc in (0, 1):
         for dyc in (0, 1):
             for dob in (0, 1):
                 wx = 1 - (cx - cx0) if dxc == 0 else cx - cx0
                 wy = 1 - (cy - cy0) if dyc == 0 else cy - cy0
                 wo = 1 - (ob - ob0) if dob == 0 else ob - ob0
-                ix = torch.clamp(cx0 + dxc, 0, 3).to(torch.int64)
-                iy = torch.clamp(cy0 + dyc, 0, 3).to(torch.int64)
-                io = torch.remainder(ob0.to(torch.int64) + dob, 8)
+                io.append(torch.remainder(ob0.to(torch.int64) + dob, 8))
                 inside = ((cx0 + dxc >= 0) & (cx0 + dxc <= 3)
                           & (cy0 + dyc >= 0) & (cy0 + dyc <= 3))
-                idx.append((iy * 32 + ix * 8)[None] + io)
                 val.append(torch.where(inside, mw * wx * wy * wo, 0.0))
-    # One scatter, the updates in the reference's order (corner-major).
-    desc = torch.zeros((xy.shape[0], 128), dtype=m.dtype, device=m.device)
-    desc.scatter_add_(1, torch.cat(idx, 1), torch.cat(val, 1))
+    io, val = torch.cat(io, 1), torch.cat(val, 1)  # corner-major
+    K = xy.shape[0]
+    if _fixed_order(m):
+        # Each spatial cell's 128 terms in corner-major order, one-hot over
+        # the orientation bins, summed.
+        cells = kept(("sift_cells",), m.device, _cell_terms)  # (16, 128)
+        desc = _one_hot_sum(io[:, cells], val[:, cells], 8, 2).reshape(K, 128)
+    else:
+        # One scatter, the updates in the reference's order (corner-major).
+        cell = kept(("sift_cell",), m.device, _term_cells)  # (2048,)
+        desc = torch.zeros((K, 128), dtype=m.dtype, device=m.device)
+        desc.scatter_add_(1, cell[None] * 8 + io, val)
     v = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=1),
                            min=1e-9)[:, None]
     v = torch.clamp(v, 0.0, 0.2)
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=1),
                            min=1e-9)[:, None]
+
+
+def _cell_coords(dgrid: torch.Tensor):
+    """Floor and value of the descriptor's cell coordinates (x, y) of each
+    sample of the 16x16 grid ``dgrid``, in [-0.5, 3.5]."""
+    cell = (dgrid + 8.0) / 4.0 - 0.5
+    cx, cy = cell[:, 0], cell[:, 1]
+    return torch.floor(cx), torch.floor(cy), cx, cy
+
+
+def _term_cells() -> torch.Tensor:
+    """The spatial cell (iy * 4 + ix, the 8 corners' clamped cells) of each
+    of the descriptor's 2048 terms, corner-major as ``_descriptors`` lays
+    them out: the same for every keypoint."""
+    cx0, cy0, _, _ = _cell_coords(imops.window_coords(16))
+    return torch.cat([
+        torch.clamp(cy0 + dyc, 0, 3).to(torch.int64) * 4
+        + torch.clamp(cx0 + dxc, 0, 3).to(torch.int64)
+        for dxc in (0, 1) for dyc in (0, 1) for dob in (0, 1)])
+
+
+def _cell_terms() -> torch.Tensor:
+    """(16, 128): the terms of each spatial cell (``_term_cells``), in
+    corner-major order."""
+    return torch.argsort(_term_cells(), stable=True).reshape(16, 128)
 
 
 def _orientation_and_descriptor(levels, xy, level_f, sigma_lvl, s):

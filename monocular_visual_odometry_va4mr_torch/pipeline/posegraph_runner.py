@@ -15,10 +15,15 @@ Departures from the reference, by design:
     pair in pair order (the reference's draw for pair k is
     ``fold_in(PRNGKey(seed), k)``).
   * A chunk of 8 pairs is verified in one batched call, as the reference's
-    ``jax.vmap`` of its verifier: the matching takes the chunk as its
-    leading axis, and the essential RANSAC, pose and triangulation run under
-    ``torch.func.vmap`` (``verify_geometry``), with one host sync per
-    chunk.  Each pair's bank is drawn before the call, in pair order.
+    ``jax.jit(jax.vmap(...))`` of its verifier (``verify_chunk``): the
+    matching takes the chunk as its leading axis, and the bank's selection,
+    the essential RANSAC, pose and triangulation run under
+    ``torch.func.vmap`` (``verify_geometry``); on a CUDA device the chunk
+    replays a graph, with one copy to the host per chunk.  Each pair's
+    bank is drawn before the call, in pair order (its uniforms, from the
+    sampler's ``draw``).
+  * Keyframe SIFT replays the VO's SIFT graph on a CUDA device
+    (``VisualOdometry.sift_features``).
   * :func:`bank_to_arrays` / :func:`bank_from_arrays` carry a bank as the
     arrays of the reference's checkpoint (``kf_*``, ``bank_*``).
 """
@@ -33,7 +38,7 @@ import torch
 
 from ..backend import posegraph, posegraph_sim3
 from ..core import linalg
-from ..ops import essential, match, sift, triangulate
+from ..ops import essential, match, ransac, triangulate
 
 
 @dataclasses.dataclass
@@ -74,15 +79,10 @@ class KeyframeBank:
         self.keyframes: List[Keyframe] = []
 
     def _features(self, image):
-        sc = self.vo.config.sift
-        f = sift.detect_and_compute(
-            self.vo._as_image(image), max_features=self.max_features,
-            num_octaves=sc.num_octaves,
-            scales_per_octave=sc.scales_per_octave,
-            contrast_threshold=sc.contrast_threshold,
-            edge_threshold=sc.edge_threshold, sigma=sc.sigma,
-            first_octave=sc.first_octave)
-        return f.uv.cpu().numpy(), f.desc.cpu().numpy(), f.valid.cpu().numpy()
+        # On a CUDA device a replay of the VO's SIFT graph, read back in one
+        # copy (``VisualOdometry.sift_features``).
+        f = self.vo.sift_features(image, self.max_features, host=True)
+        return f.uv.numpy(), f.desc.numpy(), f.valid.numpy()
 
     def add_keyframe(self, record_idx: int, frame: int, T_CW, image,
                      lm_uv, lm_z) -> None:
@@ -255,42 +255,109 @@ def verify_geometry(cam, u0, u1m, mok, idx, samp_ok, *,
             mok.sum(), inl.sum())
 
 
+def verify_chunk(cam, u0, u1, desc0, valid0, desc1, valid1, draws, *,
+                 ratio: float, threshold_px: float, select):
+    """One chunk of keyframe pairs stacked on a leading axis: ratio-test
+    matching over the chunk, each pair's bank ``select``-ed from its draw
+    (``draws`` (chunk, iterations, 5) uniforms) onto its matches, then
+    ``verify_geometry`` under ``torch.func.vmap``.  Nothing in it reads the
+    device on the host but the library calls that wait on it (captured
+    around, ``pipeline/vo.py``).  Returns (idx1, inl, ok, R, t, votes,
+    z_i, z_j, n_match, n_inl), each with the chunk's leading axis."""
+    idx1, mok, u1m = _chunk_matches(u1, desc0, valid0, desc1, valid1, ratio)
+    idx, samp_ok = torch.func.vmap(select)(draws, mok)
+    return _chunk_geometry(cam, u0, u1m, mok, idx, samp_ok, idx1,
+                           threshold_px)
+
+
+def _chunk_matches(u1, desc0, valid0, desc1, valid1, ratio):
+    """A chunk's ratio matches and the second views' matched points."""
+    idx1, mok = match.match_ratio(desc0, valid0, desc1, valid1, ratio=ratio)
+    return idx1, mok, torch.gather(u1, 1, idx1[..., None].expand(-1, -1, 2))
+
+
+def _chunk_geometry(cam, u0, u1m, mok, idx, samp_ok, idx1, threshold_px):
+    """``verify_geometry`` of every pair of a chunk on its bank, under
+    ``torch.func.vmap``, after the matches ``idx1``."""
+    return (idx1, *torch.func.vmap(functools.partial(
+        verify_geometry, cam, threshold_px=threshold_px))(
+            u0, u1m, mok, idx, samp_ok))
+
+
 def verify_pairs(vo, cam, pairs, kfs, *, ransac_iters: int,
                  threshold_px: float, sampler, generator):
     """Geometric verification of keyframe pairs, a chunk of
-    ``VERIFY_CHUNK`` at a time, each chunk one batched call: ratio-test
-    matching over the chunk, then ``verify_geometry`` under
-    ``torch.func.vmap``.  The last chunk is padded by repeating its last
-    pair (and bank), and the padded results dropped.  The banks are drawn
-    pair by pair, in pair order, before the chunk's call.  Returns, per
-    pair, the host arrays (idx1, inl, ok, R, t, votes, z_i, z_j, n_match,
-    n_inl)."""
+    ``VERIFY_CHUNK`` at a time, each chunk one batched call
+    (``verify_chunk``), on a CUDA device the replay of its graph
+    (``VisualOdometry.graphed``), read back in one copy.  The last chunk is
+    padded by repeating its last pair (and draw), and the padded results
+    dropped.  The banks' uniforms are drawn pair by pair, in pair order,
+    before the chunk's call, with the sampler's ``draw``; a sampler without
+    one is called pair by pair on each pair's matches, and its chunk runs
+    op by op.  Returns, per pair, the host arrays (idx1, inl, ok, R, t,
+    votes, z_i, z_j, n_match, n_inl)."""
     dev = vo.device
     ratio = vo.config.sift.ratio
-    geometry = torch.func.vmap(functools.partial(
-        verify_geometry, cam, threshold_px=threshold_px))
+    draw = getattr(sampler, "draw", None)
+    select = getattr(sampler, "select", ransac.select_minimal_sets)
     out = []
     for c0 in range(0, len(pairs), VERIFY_CHUNK):
         chunk = pairs[c0:c0 + VERIFY_CHUNK]
         padded = chunk + [chunk[-1]] * (VERIFY_CHUNK - len(chunk))
-
-        def stack(name, side):
-            return torch.from_numpy(np.stack(
-                [getattr(kfs[p[side]], name) for p in padded])).to(dev)
-
-        u0, u1 = stack("uv", 0), stack("uv", 1)
-        idx1, mok = match.match_ratio(stack("desc", 0), stack("valid", 0),
-                                      stack("desc", 1), stack("valid", 1),
-                                      ratio=ratio)
-        u1m = torch.gather(u1, 1, idx1[..., None].expand(-1, -1, 2))
-        banks = [sampler(generator, mok[ci], ransac_iters, 5)
-                 for ci in range(len(chunk))]
-        banks += banks[-1:] * (VERIFY_CHUNK - len(chunk))
-        rows = geometry(u0, u1m, mok, torch.stack([b[0] for b in banks]),
-                        torch.stack([b[1] for b in banks]))
-        host = [a.cpu().numpy() for a in (idx1, *rows)]
+        inputs = chunk_inputs(kfs, padded, dev)
+        if draw is not None:
+            draws = [draw(generator, ransac_iters, 5) for _ in chunk]
+            draws += draws[-1:] * (VERIFY_CHUNK - len(chunk))
+            host = [a.numpy() for a in verify_chunk_replayed(
+                vo, cam, inputs, torch.stack(draws),
+                threshold_px=threshold_px, select=select)]
+        else:
+            host = [a.cpu().numpy()
+                    for a in _verify_chunk_sampled(cam, inputs, len(chunk),
+                                                   ransac_iters, ratio,
+                                                   threshold_px, sampler,
+                                                   generator)]
         out.extend(tuple(a[ci] for a in host) for ci in range(len(chunk)))
     return out
+
+
+def chunk_inputs(kfs, pairs, device):
+    """The keyframes of ``pairs`` stacked for ``verify_chunk`` on
+    ``device``: (u0, u1, desc0, valid0, desc1, valid1)."""
+    def stack(name, side):
+        return torch.from_numpy(np.stack(
+            [getattr(kfs[p[side]], name) for p in pairs])).to(device)
+
+    return (stack("uv", 0), stack("uv", 1), stack("desc", 0),
+            stack("valid", 0), stack("desc", 1), stack("valid", 1))
+
+
+def verify_chunk_replayed(vo, cam, inputs, draws, *, threshold_px: float,
+                          select=ransac.select_minimal_sets):
+    """``verify_chunk`` of ``chunk_inputs`` and ``draws`` through
+    ``vo.graphed`` (a graph per camera, ratio, threshold and selection on a
+    CUDA device), its outputs on the host."""
+    ratio = vo.config.sift.ratio
+    return vo.graphed(("verify", cam, ratio, threshold_px, select),
+                      functools.partial(verify_chunk, cam, ratio=ratio,
+                                        threshold_px=threshold_px,
+                                        select=select),
+                      *inputs, draws, host=True)
+
+
+def _verify_chunk_sampled(cam, inputs, n, ransac_iters, ratio, threshold_px,
+                          sampler, generator):
+    """``verify_chunk`` for a sampler without ``draw``: called pair by pair
+    on each pair's matches (the chunk's first ``n`` pairs, the padding
+    repeating the last bank)."""
+    u0, u1, desc0, valid0, desc1, valid1 = inputs
+    idx1, mok, u1m = _chunk_matches(u1, desc0, valid0, desc1, valid1, ratio)
+    banks = [sampler(generator, mok[ci], ransac_iters, 5) for ci in range(n)]
+    banks += banks[-1:] * (VERIFY_CHUNK - n)
+    return _chunk_geometry(cam, u0, u1m, mok,
+                           torch.stack([b[0] for b in banks]),
+                           torch.stack([b[1] for b in banks]), idx1,
+                           threshold_px)
 
 
 def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
@@ -298,14 +365,17 @@ def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
                  ransac_iters: int = 300, seed: int = 0,
                  mode: str = "retrieval", topk: int = 3,
                  min_depth_ratio: float = 3.0, sampler=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 trace: Optional[dict] = None):
     """Find and verify loop-closure keyframe pairs.
 
     ``mode="retrieval"``: global-descriptor top-k candidates;
     ``"exhaustive"``: every admissible pair.  ``sampler``: draws the RANSAC
     banks (the VO's when None); ``generator``: the generator it is given,
     one seeded from ``seed`` on the VO's device when None.  ``cam``: the
-    VO's camera when None.
+    VO's camera when None.  ``trace``: a dict that receives the
+    verifier's outputs per pair (``"verified"``) and the loops returned
+    (``"loops"``).
 
     Returns [(i_kf, j_kf, R, t_dir, n_inl, t_i, t_j)]: t_i / t_j are the
     loop baseline measured in keyframe i's / j's local odometry scale
@@ -330,6 +400,8 @@ def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
                             sampler=sampler or vo.sampler,
                             generator=generator)
     loops = []
+    if trace is not None:
+        trace.update(verified=verified, loops=loops)
     for (a, b), res in zip(pairs, verified):
         idx1, inl, ok, R, t, votes, z_i, z_j, n_match, n_inl = res
         if (int(n_match) < min_matches or not bool(ok)
@@ -357,7 +429,8 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
                       mode: str = "retrieval", robust_delta: float = 0.5,
                       min_loop_edges: int = 2, verbose: bool = False,
                       sampler=None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      trace: Optional[dict] = None
                       ) -> Optional[np.ndarray]:
     """Build the pose graph (odometry chain + verified loop edges) on the
     VO's device, optimize it, and return corrected (len(records), 3)
@@ -368,13 +441,14 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
     Huber-robust solve with leave-one-out pruning; ``"se3"``: loop edges
     borrow |t| from the current estimate.  Non-keyframe poses ride along
     with their preceding keyframe's correction (rescaled by the node's scale
-    on Sim(3))."""
+    on Sim(3)).  ``trace``: as :func:`detect_loops`'s."""
     kfs = bank.keyframes
     if len(kfs) < 3:
         return None
     loops = detect_loops(bank, cam, min_gap_frames=min_gap_frames,
                          min_matches=min_matches, min_inliers=min_inliers,
-                         mode=mode, sampler=sampler, generator=generator)
+                         mode=mode, sampler=sampler, generator=generator,
+                         trace=trace)
     if verbose:
         print(f"posegraph[{method}]: {len(kfs)} keyframes, "
               f"{len(loops)} loop edges")

@@ -17,8 +17,19 @@ the landmark snapshot), all in one memory pool, over static buffers that
 hold the state, the image and the RANSAC draws.  A replay is one launch from the host;
 the launches of the kernels it holds are added to their wrappers' counts.
 A capture or replay that fails raises: nothing falls back to eager
-stepping.  On the CPU ``step`` runs ``_step_impl``.  The bootstrap runs
-eagerly everywhere.
+stepping.  On the CPU ``step`` runs ``_step_impl``.
+
+The reference's other compiled functions are graphs too on a CUDA device
+(``graphed``, over a ``GraphCache`` of the VO's: one graph per key and
+input shapes, captured at first use): the bootstrap's pieces (the first
+frame's pyramid and corners, one KLT hop, SIFT, the ratio match, the
+geometry: ``jax.jit(_bootstrap_geom_impl)``), the keyframe bank's SIFT
+(``sift_features``) and the loop verifier's chunk
+(``posegraph_runner.verify_chunk``).  torch's ``eigh`` and ``svd`` read
+their error codes on the host on the card, which no capture allows, so a
+function that calls them is captured in segments: the capture ends before
+each such call, which runs between the replays (``_Segments``).  The
+geometry's RANSAC bank is drawn before its replay, as the step's is.
 
 Batched, as in the reference's ``jax.jit(jax.vmap(_step_impl))``
 (``parallel/seq_dp.py``): ``step_batch(states, images, generators)`` steps S
@@ -61,9 +72,11 @@ Departures from the reference, by design:
     a sampler with a ``draw(generator, num_hypotheses, sample_size)``
     method (the default's is ``ransac.draw_uniforms``) gives a draw that
     the step maps onto the valid rows with the sampler's ``select``
-    (``ransac.select_minimal_sets`` unless it names its own).  A
-    sampler without one (tests inject the reference's own draws) is handed
-    the generator inside ``_step_impl`` and runs only eagerly.
+    (``ransac.select_minimal_sets`` unless it names its own); the
+    bootstrap's geometry draws and maps its bank the same way.  A sampler
+    without one (tests inject the reference's own draws) is handed the
+    generator inside ``_step_impl`` or ``_bootstrap_geom`` and runs only
+    eagerly.
   * The in-step BA trigger is a cadence the host knows (``state.host_frame``,
     carried beside the device ``frame_idx``): the branch runs when
     ``new_frame >= window`` and ``new_frame % every == 0``, and its result is
@@ -73,11 +86,13 @@ Departures from the reference, by design:
 """
 from __future__ import annotations
 
+import functools
 import gc
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core import lie, linalg
 from ..core.camera import Camera
@@ -152,6 +167,7 @@ class VisualOdometry:
         self.generator = None  # made at first use, on self.device
         self.ba_runs = 0  # in-step BA branches run (host-known cadence)
         self.graphs = None  # the captured step (StepGraphs), at first use
+        self.fn_graphs = None  # the other graphs (GraphCache), at first use
         # How ``step`` packs a frame's outputs (``frame_outputs``), without
         # and with the landmark snapshot.
         K = config.capacity.max_landmarks
@@ -250,16 +266,22 @@ class VisualOdometry:
 
     # ------------------------------------------------------------------
     def _bootstrap_geom(self, uv0, uv1, pair_valid, pyr1,
-                        generator) -> FrameState:
-        """E-RANSAC -> pose -> triangulation -> initial state."""
+                        draws) -> FrameState:
+        """E-RANSAC -> pose -> triangulation -> initial state (without its
+        ``host_frame``).  ``draws``: the bank's uniforms from the sampler's
+        ``draw`` (``bootstrap_draws``), mapped onto the valid pairs here
+        with its ``select``, or the generator of a sampler without one."""
         cfg = self.config
         cap = cfg.capacity
         M, K = cap.max_candidates, cap.max_landmarks
         dev = self.device
 
-        idx, samp_ok = self.sampler(
-            generator, pair_valid, cfg.essential.iterations,
-            5 if cfg.essential.solver == "5point" else 8)
+        if self._draw is not None:
+            idx, samp_ok = self._select(draws.to(dev), pair_valid)
+        else:
+            idx, samp_ok = self.sampler(draws, pair_valid,
+                                        cfg.essential.iterations,
+                                        self._essential_sample_size())
         E, inliers, ess_ok = essential.find_essential_ransac(
             self.cam, uv0, uv1, pair_valid, idx, samp_ok,
             threshold_px=cfg.essential.threshold_px,
@@ -284,7 +306,7 @@ class VisualOdometry:
 
         state = init_state(cfg, pyr1, dev)
         ok = ess_ok & (promote.sum() >= cfg.landmarks.min_bootstrap_landmarks)
-        state = state.replace(
+        return state.replace(
             frame_idx=torch.ones((), dtype=torch.int32, device=dev),
             T_CW=T_CW,
             lm_gen=scatter_add_rows(state.lm_gen, lm_slots, lm_acc),
@@ -302,8 +324,79 @@ class VisualOdometry:
             n_inliers=inliers.sum().to(torch.int32),
             n_tracked=pair_valid.sum().to(torch.int32),
         )
-        state.host_frame = 1
-        return state
+
+    def _essential_sample_size(self) -> int:
+        return 5 if self.config.essential.solver == "5point" else 8
+
+    def bootstrap_draws(self, generator: Optional[torch.Generator] = None):
+        """The bootstrap's RANSAC draws from ``generator`` (the VO's own if
+        None): (essential.iterations, 5 or 8) float32 uniforms, or the
+        generator itself for a sampler without ``draw``."""
+        gen = self._generator(generator)
+        if self._draw is None:
+            return gen
+        return self._draw(gen, self.config.essential.iterations,
+                          self._essential_sample_size())
+
+    def _first_frame(self, img0):
+        """The first bootstrap frame's pyramid and its corners in the first
+        ``max_candidates`` rows: (planes..., uv0 (M, 2), valid (M,))."""
+        M = self.config.capacity.max_candidates
+        dev = self.device
+        uv0_det, _, det_valid = self._detect(img0)
+        n = min(int(uv0_det.shape[0]), M)
+        uv0 = torch.zeros((M, 2), dtype=torch.float32, device=dev)
+        uv0[:n] = uv0_det[:n]
+        valid = torch.zeros(M, dtype=torch.bool, device=dev)
+        valid[:n] = det_valid[:n]
+        return (*self.make_pyramid(img0), uv0, valid)
+
+    def _hop(self, *inputs):
+        """One hop of the KLT bootstrap chain: (the previous image's
+        planes..., the next image, uv, valid) -> (the next image's
+        planes..., uv tracked to it, valid & tracked)."""
+        *prev_pyr, image, uv, valid = inputs
+        pyr = self.make_pyramid(image)
+        uv, tracked, _ = self._track_fb(tuple(prev_pyr), pyr, uv, valid)
+        return (*pyr, uv, valid & tracked)
+
+    def _sift(self, image, max_features: int):
+        """``sift.detect_and_compute`` of ``image`` with the config's SIFT
+        knobs, as a tuple (``SiftFeatures``' fields)."""
+        sc = self.config.sift
+        return tuple(sift.detect_and_compute(
+            image, max_features=max_features, num_octaves=sc.num_octaves,
+            scales_per_octave=sc.scales_per_octave,
+            contrast_threshold=sc.contrast_threshold,
+            edge_threshold=sc.edge_threshold, sigma=sc.sigma,
+            first_octave=sc.first_octave))
+
+    def _match(self, desc0, valid0, desc1, valid1):
+        return match.match_ratio(desc0, valid0, desc1, valid1,
+                                 ratio=self.config.sift.ratio)
+
+    def graphed(self, key, fn, *inputs, host: bool = False):
+        """``fn(*inputs)``, a tuple of tensors: on a CUDA device the replay of
+        its graph in ``self.fn_graphs`` (``GraphCache.call``, keyed by
+        ``key`` and the inputs' shapes and dtypes; ``host``: the outputs
+        come back on the host, in one copy), on the CPU ``fn`` itself."""
+        if self.device.type != "cuda":
+            out = fn(*inputs)
+            return [t.cpu() for t in out] if host else out
+        if self.fn_graphs is None:
+            self.fn_graphs = GraphCache(self.device)
+        return self.fn_graphs.call(key, fn, inputs, host=host)
+
+    def sift_features(self, image, max_features: int,
+                      host: bool = False) -> sift.SiftFeatures:
+        """SIFT of an (H, W) image on the device with the config's knobs
+        and ``max_features`` rows (``sift.detect_and_compute``); replayed
+        from a graph per image shape and ``max_features`` on a CUDA
+        device (``graphed``)."""
+        return sift.SiftFeatures(*self.graphed(
+            ("sift", max_features), functools.partial(
+                self._sift, max_features=max_features),
+            self._as_image(image), host=host))
 
     def bootstrap(self, img0, img1, intermediate=(),
                   generator: Optional[torch.Generator] = None) -> FrameState:
@@ -311,43 +404,62 @@ class VisualOdometry:
         both frames, ratio-test matched (``intermediate`` unused);
         ``"klt"``: Shi-Tomasi corners on ``img0``, KLT chain-tracked through
         ``intermediate`` to ``img1``.  ``generator`` draws the RANSAC bank
-        (one seeded from ``seed`` if None)."""
+        (one seeded from ``seed`` if None).
+
+        On a CUDA device each piece replays its graph (``graphed``), as the
+        reference runs each as a compiled function: the first frame's
+        pyramid and corners (``_first_frame``), one graph per hop
+        (``_hop``: the next image's pyramid and ``_track_fb``), SIFT and
+        the ratio match, and the geometry (``_bootstrap_geom``, its bank
+        drawn before its replay; a sampler without ``draw`` runs it op by
+        op).  On the CPU each runs op by op."""
+        return self._bootstrap(img0, img1, intermediate, generator,
+                               self.graphed)
+
+    def bootstrap_eager(self, img0, img1, intermediate=(),
+                        generator: Optional[torch.Generator] = None
+                        ) -> FrameState:
+        """``bootstrap`` op by op on any device: what its graphs replay."""
+        return self._bootstrap(img0, img1, intermediate, generator,
+                               lambda key, fn, *inputs: fn(*inputs))
+
+    def _bootstrap(self, img0, img1, intermediate, generator,
+                   run) -> FrameState:
         cfg = self.config
-        M = cfg.capacity.max_candidates
-        dev = self.device
         img0 = self._as_image(img0)
         img1 = self._as_image(img1)
-        pyr1 = self.make_pyramid(img1)
         if cfg.bootstrap_method == "sift":
-            sc = cfg.sift
-            kw = dict(max_features=M, num_octaves=sc.num_octaves,
-                      scales_per_octave=sc.scales_per_octave,
-                      contrast_threshold=sc.contrast_threshold,
-                      edge_threshold=sc.edge_threshold, sigma=sc.sigma,
-                      first_octave=sc.first_octave)
-            f0 = sift.detect_and_compute(img0, **kw)
-            f1 = sift.detect_and_compute(img1, **kw)
-            idx1, mok = match.match_ratio(f0.desc, f0.valid, f1.desc,
-                                          f1.valid, ratio=sc.ratio)
-            return self._bootstrap_geom(f0.uv, f1.uv[idx1], mok, pyr1,
-                                        self._generator(generator))
+            M = cfg.capacity.max_candidates
+            f0, f1 = (sift.SiftFeatures(*run(
+                ("sift", M), functools.partial(self._sift, max_features=M),
+                img)) for img in (img0, img1))
+            idx1, pair_valid = run(("match",), self._match, f0.desc,
+                                   f0.valid, f1.desc, f1.valid)
+            uv0, uv1 = f0.uv, f1.uv[idx1]
+            pyr1 = tuple(run(("pyramid",), self.make_pyramid, img1))
+        else:
+            *pyr, uv0, valid = run(("first_frame",), self._first_frame, img0)
+            uv1 = uv0
+            for image in [*map(self._as_image, intermediate), img1]:
+                *pyr, uv1, valid = run(("hop",), self._hop, *pyr, image,
+                                       uv1, valid)
+            pyr1, pair_valid = tuple(pyr), valid
+        draws = self.bootstrap_draws(generator)
+        if torch.is_tensor(draws):
+            state = FrameState.from_tensors(run(
+                ("geometry",), self._geometry, uv0, uv1, pair_valid, *pyr1,
+                draws), len(pyr1))
+        else:
+            state = self._bootstrap_geom(uv0, uv1, pair_valid, pyr1, draws)
+        state.host_frame = 1
+        return state
 
-        pyr0 = self.make_pyramid(img0)
-        uv0_det, _, det_valid = self._detect(img0)
-        n = min(int(uv0_det.shape[0]), M)
-        uv0 = torch.zeros((M, 2), dtype=torch.float32, device=dev)
-        uv0[:n] = uv0_det[:n]
-        valid = torch.zeros(M, dtype=torch.bool, device=dev)
-        valid[:n] = det_valid[:n]
-        uv1 = uv0
-        prev_pyr = pyr0
-        chain = [self.make_pyramid(self._as_image(im)) for im in intermediate]
-        for hop_pyr in [*chain, pyr1]:
-            uv1, tracked, _ = self._track_fb(prev_pyr, hop_pyr, uv1, valid)
-            valid = valid & tracked
-            prev_pyr = hop_pyr
-        return self._bootstrap_geom(uv0, uv1, valid, pyr1,
-                                    self._generator(generator))
+    def _geometry(self, uv0, uv1, pair_valid, *rest):
+        """``_bootstrap_geom`` over (uv0, uv1, pair_valid, pyramid
+        planes..., draws), as the state's tensors."""
+        *pyr1, draws = rest
+        return tuple(self._bootstrap_geom(uv0, uv1, pair_valid, tuple(pyr1),
+                                          draws).tensors())
 
     # ------------------------------------------------------------------
     def step(self, state: FrameState, image,
@@ -742,7 +854,167 @@ class _Buffers:
                         for lm, p in vo.outputs.items()}
 
 
-class StepGraphs:
+# The library calls that wait on the device inside them: torch reads their
+# error codes (``eigh``'s; ``svd``'s convergence) on the host, which no
+# capture allows.  A graph whose function makes one is captured in segments
+# around it (``GraphCache``).
+_HOST_WAITS = (torch.ops.aten._linalg_eigh.default,
+               torch.ops.aten._linalg_svd.default)
+
+
+class _Segments(TorchDispatchMode):
+    """What one capture records: graphs, and between them the calls of
+    ``_HOST_WAITS`` that no graph can hold.  Active while a function is
+    captured, it ends the capture before each such call, replays the graph
+    it just ended (a captured graph has run nothing: without the replay the
+    call would read whatever earlier replays left in the pool, and could
+    fail on it), runs the call, keeps its arguments and its result, and
+    begins a new capture after it.  ``replay`` replays the graphs in turn,
+    and runs each call between them again on the same arguments (the
+    tensors the graphs write), its result copied into the tensors the
+    later graphs read."""
+
+    def __init__(self, pool):
+        super().__init__()
+        self.pool = pool
+        self.steps = []  # CUDAGraph, (func, args, kwargs, result), ...
+        self.graph = None
+
+    def begin(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool,
+                                 capture_error_mode="thread_local")
+
+    def end(self):
+        if self.graph is not None:
+            self.graph.capture_end()
+            self.steps.append(self.graph)
+            self.graph = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _HOST_WAITS:
+            return func(*args, **kwargs)
+        self.end()
+        self.steps[-1].replay()
+        out = func(*args, **kwargs)
+        self.steps.append((func, args, kwargs, out))
+        self.begin()
+        return out
+
+    @staticmethod
+    def replay(steps) -> None:
+        for step in steps:
+            if isinstance(step, torch.cuda.CUDAGraph):
+                step.replay()
+            else:
+                func, args, kwargs, out = step
+                for kept, new in zip(out, func(*args, **kwargs)):
+                    kept.copy_(new)
+
+
+class GraphCache:
+    """CUDA graphs keyed by their caller, in one memory pool: the capture and
+    replay that ``StepGraphs`` and ``VisualOdometry``'s other graphs
+    (``graphed``: the bootstrap's pieces, SIFT, the loop verifier's chunk)
+    share.
+
+    ``capture(key, record, warm_up)`` runs ``warm_up()`` on a side stream
+    (it builds and loads the kernels and the library handles, and makes
+    the constant tensors, ``core.linalg.constant`` / ``kept``; its result
+    is dropped), then captures ``record()`` on it with Python's garbage
+    collector collected and off (a graph it frees, one of a VO that is
+    gone, would end the capture: no graph may be destroyed while a stream
+    captures) and ``capture_error_mode="thread_local"``.  A call that
+    waits on the device inside it (``_HOST_WAITS``) ends one capture and
+    begins the next (``_Segments``), so a key may hold several graphs with
+    such calls between them.  Capturing records how many launches of each
+    counted kernel the graphs hold; ``replay(key)`` adds them to the
+    wrappers' counts, and the warm-up and the capture add nothing.
+
+    ``call(key, fn, inputs)`` is the graph of a function of tensors that
+    returns a tuple of tensors, one graph per key and the inputs' shapes
+    and dtypes: it reads static copies of the inputs and packs the outputs
+    into one buffer (``core.state.Packing``).  Each call copies the inputs
+    in, replays, and returns the outputs as views of one copy of that
+    buffer (on the host if ``host``), so a later replay leaves them as they
+    are.  Every failure raises: nothing falls back to running eagerly."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[tuple, tuple] = {}  # key -> (steps, launches held)
+        self.capture_s: Dict[tuple, float] = {}  # warm-up included
+        self.replays = 0
+        self._io: Dict[tuple, tuple] = {}  # call's key -> (inputs, out, buf)
+
+    def capture(self, key, record: Callable[[], None],
+                warm_up: Callable[[], object]) -> None:
+        t0 = time.perf_counter()
+        counts = _launch_counts()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warm_up()
+        warmed = _launch_counts()
+        segments = _Segments(self.pool)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            torch.cuda.synchronize(self.device)
+            with torch.cuda.stream(side):
+                segments.begin()
+                try:
+                    with segments:
+                        record()
+                finally:
+                    segments.end()
+        finally:
+            if collecting:
+                gc.enable()
+        main.wait_stream(side)
+        held = tuple(a - b for a, b in zip(_launch_counts(), warmed))
+        _set_launch_counts(counts)
+        torch.cuda.synchronize(self.device)
+        self.graphs[key] = (segments.steps, held)
+        self.capture_s[key] = time.perf_counter() - t0
+
+    def replay(self, key) -> None:
+        steps, held = self.graphs[key]
+        _Segments.replay(steps)
+        _set_launch_counts(tuple(c + h for c, h
+                                 in zip(_launch_counts(), held)))
+        self.replays += 1
+
+    def call(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
+             host: bool = False) -> List[torch.Tensor]:
+        key = (key,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        if key in self._io:
+            for buf, t in zip(self._io[key][0], inputs):
+                buf.copy_(t)
+        else:
+            static = [t.to(self.device, copy=True) for t in inputs]
+            out = {}
+
+            def warm_up():
+                out["packing"] = Packing(fn(*static))
+
+            def record():
+                packing = out["packing"]
+                out["buf"] = torch.empty(packing.nbytes, dtype=torch.uint8,
+                                         device=self.device)
+                packing.pack(out["buf"], fn(*static))
+
+            self.capture(key, record, warm_up)
+            self._io[key] = (static, out["packing"], out["buf"])
+        _, packing, buf = self._io[key]
+        self.replay(key)
+        return packing.views(buf.cpu() if host else buf.clone())
+
+
+class StepGraphs(GraphCache):
     """``VisualOdometry._step_impl`` captured as CUDA graphs over static
     buffers: the counterpart of the reference's ``jax.jit(_step_impl)``,
     and of ``jax.jit(jax.vmap(_step_impl))`` for a batch.
@@ -756,13 +1028,9 @@ class StepGraphs:
     next state back over the state buffer (and the outputs into theirs).
     One graph per (upload dtype, in-step BA or not, tracker, outputs: none,
     without or with the landmark snapshot, batch size), captured at first
-    use after one warm-up run on a side stream (it builds and loads the
-    kernels and the library handles, and makes the step's constant tensors,
-    ``core.linalg.constant``); all share one memory pool.  Capturing records
-    how many launches of each counted kernel the graph holds; each replay
-    adds them to the wrapper's count, and the warm-up and the capture add
-    nothing.  A batched graph holds as many launches as the solo one: each
-    kernel call of the body takes every sequence.
+    use (``GraphCache.capture``, its warm-up one run of the body), all in
+    one memory pool.  A batched graph holds as many launches as the solo
+    one: each kernel call of the body takes every sequence.
 
     ``step`` copies the state in (one copy for a state a replay returned, a
     copy per tensor otherwise), replays, and returns the new state as views
@@ -770,13 +1038,10 @@ class StepGraphs:
     Every failure raises."""
 
     def __init__(self, vo: "VisualOdometry"):
+        super().__init__(vo.device)
         self.vo = vo
-        self.pool = torch.cuda.graph_pool_handle()
         self.packing: Optional[Packing] = None
         self.bufs: Dict[Optional[int], _Buffers] = {}
-        self.graphs: Dict[tuple, tuple] = {}  # key -> (graph, launches held)
-        self.capture_s: Dict[tuple, float] = {}  # warm-up included
-        self.replays = 0
 
     def step(self, state: FrameState, image, draws, run_ba: bool,
              outputs: Optional[torch.Tensor], landmarks: bool,
@@ -812,13 +1077,8 @@ class StepGraphs:
         out = None if outputs is None else landmarks
         key = (dtype, run_ba, vo.klt_backend, out, batch)
         if key not in self.graphs:
-            self.graphs[key] = self._capture(key, b, img_buf, run_ba, out,
-                                             batch)
-        graph, held = self.graphs[key]
-        graph.replay()
-        _set_launch_counts(tuple(c + h for c, h
-                                 in zip(_launch_counts(), held)))
-        self.replays += 1
+            self._capture(key, b, img_buf, run_ba, out, batch)
+        self.replay(key)
         snap = b.state.clone()
         new = b.static.with_tensors(self.packing.views(snap))
         new._step_buf = (self.packing.specs, snap)
@@ -845,44 +1105,21 @@ class StepGraphs:
         return b
 
     def _capture(self, key, b: _Buffers, img_buf: torch.Tensor, run_ba: bool,
-                 out: Optional[bool], batch: Optional[int]):
+                 out: Optional[bool], batch: Optional[int]) -> None:
         vo = self.vo
         body, outs_of = ((vo._step_impl, frame_outputs) if batch is None
                          else (vo._step_batch_impl, batch_frame_outputs))
-        t0 = time.perf_counter()
-        counts = _launch_counts()
-        main = torch.cuda.current_stream(vo.device)
-        side = torch.cuda.Stream(device=vo.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            # Warm-up: its result is dropped, the buffers keep the input.
-            body(b.static, img_buf, b.draws, run_ba)
-        main.wait_stream(side)
-        warmed = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # No garbage collection inside the capture: a graph it frees (one of
-        # a VO that is gone) would end the capture, since no graph may be
-        # destroyed while a stream captures.
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
-                new = body(b.static, img_buf, b.draws, run_ba)
-                # Through a scratch buffer: the new state may share tensors
-                # with the one it was made from.
-                scratch = torch.empty_like(b.state)
-                self.packing.pack(scratch, new.tensors())
-                if out is not None:
-                    vo.outputs[out].pack(b.outputs[out], outs_of(new, out))
-                b.state.copy_(scratch)
-                del new, scratch
-        finally:
-            if collecting:
-                gc.enable()
-        held = tuple(a - b_ for a, b_ in zip(_launch_counts(), warmed))
-        _set_launch_counts(counts)
-        torch.cuda.synchronize(vo.device)
-        self.capture_s[key] = time.perf_counter() - t0
-        return graph, held
+
+        def record():
+            new = body(b.static, img_buf, b.draws, run_ba)
+            # Through a scratch buffer: the new state may share tensors with
+            # the one it was made from.
+            scratch = torch.empty_like(b.state)
+            self.packing.pack(scratch, new.tensors())
+            if out is not None:
+                vo.outputs[out].pack(b.outputs[out], outs_of(new, out))
+            b.state.copy_(scratch)
+
+        # Warm-up: its result is dropped, the buffers keep the input.
+        self.capture(key, record,
+                     lambda: body(b.static, img_buf, b.draws, run_ba))

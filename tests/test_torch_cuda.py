@@ -13,6 +13,9 @@ as the plain version rounds it); only the order of the window sums differs.
 Positions of features both accept agree to 1e-3 px, and at least 99% of ok
 flags agree (the rest sit within rounding of a gate threshold).
 """
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -480,8 +483,9 @@ def test_sift_on_cuda_matches_cpu(cuda):
     call on the CPU: the keypoints pair one to one by position (within
     1e-2 px), positions within 1e-3 px and scales within 1e-4; orientations
     and descriptors within 1e-4 for 99% of the pairs less the share whose
-    orientation flipped (the histogram's atomic adds reorder sums, and an
-    argmax between two near-equal bins can turn; at most 1%, printed)."""
+    orientation flipped (the card sums the histogram in its fixed order,
+    not the CPU's scatter order, and an argmax between two near-equal bins
+    can turn; at most 1%, printed)."""
     from monocular_visual_odometry_va4mr_torch.ops import sift
 
     img = textured(torch.Generator().manual_seed(11), 376, 1241)
@@ -636,9 +640,10 @@ def same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-def graph_vo(cuda, **kw):
+def graph_vo(cuda, method="klt", **kw):
     """``tests/test_pipeline.py``'s small config on ``pallas2`` with the
-    in-step BA over a ring of 3 every 2 frames, on the card."""
+    in-step BA over a ring of 3 every 2 frames, on the card; ``method``:
+    the bootstrap's."""
     from monocular_visual_odometry_va4mr_torch.core import config as tconfig
     from monocular_visual_odometry_va4mr_torch.core.camera import Camera
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
@@ -662,7 +667,7 @@ def graph_vo(cuda, **kw):
         capacity=tconfig.CapacityConfig(max_landmarks=512,
                                         max_candidates=512),
         ba=tconfig.InStepBAConfig(every=2, window=3, max_landmarks=64),
-        image_shape=(240, 320), bootstrap_method="klt")
+        image_shape=(240, 320), bootstrap_method=method)
     make = lambda: VisualOdometry(Camera.from_matrix(scene.K), cfg, cuda,  # noqa: E731
                                   seed=0, **kw)
     return make, frames
@@ -885,3 +890,166 @@ def test_solo_step_keeps_its_arithmetic_inside_exact(cuda):
         runs.append(st)
     for a, b in zip(runs[0].tensors(), runs[1].tensors()):
         assert same_bits(a, b), describe(a, b)
+
+
+# --- the bootstrap, SIFT and the loop verifier as graphs ---------------------
+
+def test_graph_bootstrap_equals_the_eager_one(cuda):
+    """The KLT bootstrap replayed (a graph for the first frame, one a hop,
+    the geometry in segments around torch's eigh and svd) against
+    ``bootstrap_eager`` with the same generator, twice (capture, then
+    replays only): every state tensor bit for bit equal, 3 ``klt_lk``
+    launches a hop."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo = make()
+    for _ in range(2):
+        gen = lambda: runner.frame_generator(0, 0, cuda)  # noqa: E731
+        before = tk2.klt_lk.launches
+        g = vo.bootstrap(frames[0], frames[3], intermediate=frames[1:3],
+                         generator=gen())
+        assert tk2.klt_lk.launches == before + 9
+        e = vo.bootstrap_eager(frames[0], frames[3],
+                               intermediate=frames[1:3], generator=gen())
+        assert g.host_frame == e.host_frame == 1
+        for k, (a, b) in enumerate(zip(g.tensors(), e.tensors())):
+            assert same_bits(a, b), (k, describe(a, b))
+    assert int(g.status) == 0 and int(g.lm_valid.sum()) > 20
+    graphs = {k[0]: steps for k, (steps, _) in vo.fn_graphs.graphs.items()}
+    assert set(graphs) == {("first_frame",), ("hop",), ("geometry",)}
+    # 5 graphs with 1 svd and 3 eigh calls between them.
+    assert len(graphs[("geometry",)]) == 9
+
+
+def test_graph_sift_bootstrap_equals_the_eager_one(cuda):
+    """The SIFT bootstrap replayed (SIFT of both frames, the ratio match,
+    the pyramid, the geometry) against ``bootstrap_eager``: bit for bit."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda, method="sift")
+    vo = make()
+    g = vo.bootstrap(frames[0], frames[2],
+                     generator=runner.frame_generator(0, 0, cuda))
+    e = vo.bootstrap_eager(frames[0], frames[2],
+                           generator=runner.frame_generator(0, 0, cuda))
+    for k, (a, b) in enumerate(zip(g.tensors(), e.tensors())):
+        assert same_bits(a, b), (k, describe(a, b))
+    assert int(g.n_tracked) >= 16
+    assert {k[0] for k in vo.fn_graphs.graphs} == {
+        ("sift", 512), ("match",), ("pyramid",), ("geometry",)}
+
+
+def test_sift_twice_on_one_image_is_bit_equal(cuda):
+    """SIFT sums its histograms and descriptors in a fixed order on the
+    card: two calls on one image, and its replays, give the same bits."""
+    from monocular_visual_odometry_va4mr_torch.ops import sift
+
+    make, _ = graph_vo(cuda)
+    vo = make()
+    img = textured(torch.Generator().manual_seed(11), 376, 1241).to(cuda)
+    runs = [sift.detect_and_compute(img, max_features=512) for _ in range(2)]
+    runs += [vo.sift_features(img, 512) for _ in range(2)]
+    assert runs[0].valid.sum() > 400
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert same_bits(a, b), describe(a, b)
+
+
+def test_graph_verifier_chunk_equals_the_eager_chunk(cuda):
+    """A chunk of 8 keyframe pairs through ``verify_chunk_replayed`` (its
+    graph in segments) against ``verify_chunk`` op by op on the same
+    draws, twice: every output bit for bit equal."""
+    from monocular_visual_odometry_va4mr_torch.ops import ransac
+    from monocular_visual_odometry_va4mr_torch.pipeline import (
+        posegraph_runner as pr)
+
+    make, frames = graph_vo(cuda, method="sift")
+    vo = make()
+    kfs = []
+    for i in (0, 2, 4):
+        f = vo.sift_features(frames[i], 512, host=True)
+        kfs.append(pr.Keyframe(i, i, np.eye(4), f.uv.numpy(),
+                               f.desc.numpy(), f.valid.numpy()))
+    pairs = [(0, 1), (1, 2), (0, 2), (1, 0), (2, 1), (2, 0), (0, 1), (1, 2)]
+    inputs = pr.chunk_inputs(kfs, pairs, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    draws = torch.stack([ransac.draw_uniforms(gen, 300, 5) for _ in pairs])
+    eager = pr.verify_chunk(vo.cam, *inputs, draws,
+                            ratio=vo.config.sift.ratio, threshold_px=1.5,
+                            select=ransac.select_minimal_sets)
+    for _ in range(2):
+        replayed = pr.verify_chunk_replayed(vo, vo.cam, inputs, draws,
+                                            threshold_px=1.5)
+        for k, (a, b) in enumerate(zip(replayed, eager)):
+            assert same_bits(a, b.cpu()), (k, describe(a, b.cpu()))
+    assert int(eager[-2].min()) >= 16  # matches in every pair
+
+
+# Capture one linalg call after a warm-up on a side stream, in a process of
+# its own (a failed capture can leave the process's CUDA state unusable).
+CAPTURE_PROBE = """
+import torch
+A = torch.randn(8, 3, 3, device="cuda")
+A = A @ A.mT
+Q = torch.randn(8, 5, 9, device="cuda")
+fn = dict(eigh=lambda: torch.linalg.eigh(A),
+          svd=lambda: torch.linalg.svd(Q, full_matrices=True),
+          det=lambda: torch.linalg.det(A),
+          solve_ex=lambda: torch.linalg.solve_ex(A, A[..., 0]))[{name!r}]
+side = torch.cuda.Stream()
+with torch.cuda.stream(side):
+    fn()
+torch.cuda.synchronize()
+try:
+    with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                          capture_error_mode="thread_local"):
+        fn()
+except Exception:
+    print("failed", flush=True)
+else:
+    print("captured", flush=True)
+"""
+
+
+@pytest.mark.parametrize("name,captured", [
+    ("eigh", False), ("svd", False), ("det", True), ("solve_ex", True)])
+def test_only_the_host_wait_calls_fail_to_capture(cuda, name, captured):
+    """torch's ``eigh`` and ``svd`` read their error codes on the host, so
+    no capture can hold them (``pipeline/vo.py``'s ``_HOST_WAITS``, which
+    ``GraphCache`` captures around); ``det`` and ``solve_ex`` capture."""
+    out = subprocess.run([sys.executable, "-c",
+                          CAPTURE_PROBE.format(name=name)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.split()[:1] == ["captured" if captured else "failed"], \
+        out.stderr[-2000:]
+
+
+def test_segmented_capture_reads_what_the_graph_before_it_computed(cuda):
+    """A function captured in segments around ``eigh``: at the capture the
+    call reads the values the graph before it computes, not what earlier
+    replays left in the shared pool (here NaN, written by another key's
+    graph into blocks of the same size): the capture succeeds and its
+    replays equal the eager function, bit for bit."""
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import GraphCache
+
+    cache = GraphCache(cuda)
+    a = torch.randn(64, 3, 3, generator=torch.Generator().manual_seed(5))
+    a = a.to(cuda)
+
+    def nan(x):
+        return (sum(torch.full_like(x, float("nan")) * k
+                    for k in range(8)),)
+
+    def spd_eigh(x):
+        w, v = torch.linalg.eigh(x @ x.mT + torch.eye(3, device=x.device))
+        return (w + 1.0, v)
+
+    assert torch.isnan(cache.call("nan", nan, [a])[0]).all()
+    want = spd_eigh(a)
+    for _ in range(2):
+        got = cache.call("eigh", spd_eigh, [a])
+        for x, y in zip(got, want):
+            assert same_bits(x, y), describe(x, y)
+    steps, _ = cache.graphs[("eigh", ((64, 3, 3), torch.float32))]
+    assert len(steps) == 3  # a graph, the eigh call, a graph

@@ -17,7 +17,7 @@ verified pairs, inlier counts within 2 (float32 sums in another order move
 Sampson distances at the threshold), and each pair's (R, t) within 1e-3 of
 the reference's, or, where the reference's jitted verifier and its own
 eager one disagree (a near-degenerate pair whose 5-point hypotheses score
-alike, as in ROADMAP.md Queue 3 item 4: on this bank pair (1, 15), 75
+alike, as in ROADMAP.md Queue 3 item 6: on this bank pair (1, 15), 75
 inliers either way, t 0.26 apart), within 1e-3 of the eager one.  So
 ``refine_trajectory`` is held against the reference on the same loop edges
 (both packages' ``detect_loops`` return the port's): refined positions

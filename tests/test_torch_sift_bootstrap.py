@@ -8,7 +8,7 @@ with the preset's SIFT bootstrap and 128 SIFT features (the table size).
 Seed 9: at this size SIFT keeps 30-60 keypoints a frame, and seed 7 (the
 KLT slice's) leaves 10-20 matches; the essential RANSAC is also
 rounding-sensitive on scenes whose hypotheses score alike (ROADMAP.md
-Queue 3 item 4).
+Queue 3 item 5).
 
 Tolerances: the same status; the same ratio matches; landmark counts within
 2; the bootstrap pose (|t| = 1) within 1e-3 element by element.
