@@ -82,7 +82,12 @@ exits nonzero:
 6. The CLI in a subprocess: ``python -m monocular_visual_odometry_va4mr_torch
    .run --dataset synthetic`` over 40 frames with host-side BA every 8 and a
    checkpoint at frame 20, then again with ``--resume``; both exit 0 and the
-   resumed final position matches the uninterrupted one.
+   resumed final position matches the uninterrupted one.  Then
+   (``cli_ba_graph``) the full run once more in this process (``run.main``):
+   each of its windowed BAs (``ba_refine.refine_window``, the replay of its
+   graph, the counterpart of ``jax.jit(run_ba)``) held bit for bit against
+   the same window op by op, at least 3 of them, each a replay; host ms of
+   each side, graphs captured and replayed.
 7. ``klt.backend="xla"`` (the gather tracker) through ``runner.run_sequence``
    over the scene's first 20 frames at full width: health reported, the
    trajectory must be finite.
@@ -122,8 +127,19 @@ B. The loop stream with the pose graph: ``make_loop_scene`` (seed 11, 640
    ``tests/test_posegraph_pipeline.py``'s scale-drift test at this width: a
    compounding drift of 1.004 a frame injected into the trajectory and the
    bank (``T_CW``, ``lm_z``); the Sim(3) refinement's ATE must be below 0.85
-   of the drifted ATE (the SE(3) one is printed).  The same stream on
-   float32 frames is run for its ATE.  Then (``phase_b_repeat``) the loop
+   of the drifted ATE (the SE(3) one is printed).  Then
+   (``posegraph_graph``) every pose-graph solve of phase B, which replays
+   one graph of the GN iteration a key once an iteration (the counterpart
+   of the reference's ``lax.scan`` body), run once more op by op: phase
+   B's ``optimize_consistent`` (the first, leave-one-out and final Sim(3)
+   solves) and the drift graphs' Sim(3) refinement and SE(3) solve, nodes,
+   costs and dropped edges bit for bit, and phase B's solves, capture
+   included, faster than op by op; capture seconds, replays, host ms a
+   solve and an iteration both ways, device ms, events and dispatches of
+   a replayed solve and of an iteration both ways, peak device memory.
+   The ``loop_posegraph`` line carries the refinement's seconds by stage
+   (``split``: retrieval, verification, graph, solves, recomposition).
+   The same stream on float32 frames is run for its ATE.  Then (``phase_b_repeat``) the loop
    closure once more in this process on the same stream
    (``tools/diag_loop_repeat.loop_closure``: a bank of its own, the
    verifier, the edges, the Sim(3) refinement): equal to the first run at
@@ -1187,6 +1203,53 @@ def phase_cli():
             or (ref_diff is not None and not ref_diff <= CLI_RESUME_TOL
                 * path)):
         raise RuntimeError(f"resumed run differs from the full one: {res}")
+    res["ba_graph"] = cli_ba_graph(base, pos_f)
+    return res
+
+
+def cli_ba_graph(argv, positions):
+    """The CLI's full run once more in this process (``run.main`` with the
+    subprocess's arguments, no checkpoint): each windowed BA of its
+    ``--ba-every 8`` (``ba_refine.refine_window``, on the card the replay
+    of its graph in ``core.graphs.shared``, the counterpart of the
+    reference's ``jax.jit(run_ba)``) against the same window op by op
+    (``graphs.eager()``), bit for bit; the graphs captured and replayed,
+    host ms of each side, and whether the positions equal the
+    subprocess's.  Prints the ``cli_ba_graph`` line; every check
+    raises."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch import run
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+    from monocular_visual_odometry_va4mr_torch.pipeline import ba_refine
+
+    dev = torch.device(DEVICE)
+    captured, capture_s = graphs.captures(dev)
+    replays = graphs.replays(dev)
+    timed = Timed(ba_refine, "refine_window")
+    try:
+        result = run.main(argv[3:])  # after python -m <module>
+    finally:
+        timed.restore()
+    captures = graphs.captures(dev)
+    eager = [rerun_eager(timed, k) for k in range(len(timed.calls))]
+    W, L = (tuple(timed.calls[0][0][0].obs_mask.shape) if timed.calls
+            else (None, None))
+    res = dict(
+        calls=len(timed.calls), window=W, landmarks=L,
+        bit_equal=[bit_equal(r, e) for r, (e, _) in zip(timed.results,
+                                                          eager)],
+        captures=captures[0] - captured, capture_s=captures[1] - capture_s,
+        replays=graphs.replays(dev) - replays,
+        host_ms_replayed=[1e3 * t for t in timed.seconds],
+        host_ms_eager=[1e3 * t for _, t in eager],
+        positions_equal_subprocess=bool(np.array_equal(
+            np.array([r.T_WC[:3, 3] for r in result.records]), positions)))
+    print("cli_ba_graph " + json.dumps(res), flush=True)
+    if not (res["calls"] >= 3 and all(res["bit_equal"])
+            and res["replays"] >= res["calls"]):
+        raise RuntimeError(f"the CLI's windowed BA did not replay, or its "
+                           f"replay differs from op by op: {res}")
     return res
 
 
@@ -1324,22 +1387,33 @@ def sift_graph(cfg, cam, img0, img1, kw):
 
 class Timed:
     """Replaces ``module.name`` with a wrapper that records each call's
-    result and wall time (after a device sync) until ``restore``."""
+    arguments, result and wall time (after a device sync) until
+    ``restore``; with ``peak``, also the device memory the call took at
+    its peak beyond what was allocated before it (MB; not for a call that
+    another such wrapper holds inside it)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, peak=False):
         self.module, self.name = module, name
         self.inner = getattr(module, name)
-        self.results, self.seconds = [], []
+        self.calls, self.results, self.seconds = [], [], []
+        self.peak, self.peak_mb = peak, []
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
         import torch
 
         torch.cuda.synchronize()
+        if self.peak:
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = self.inner(*args, **kw)
         torch.cuda.synchronize()
         self.seconds.append(time.perf_counter() - t0)
+        if self.peak:
+            self.peak_mb.append(
+                (torch.cuda.max_memory_allocated() - before) / 2 ** 20)
+        self.calls.append((args, kw))
         self.results.append(out)
         return out
 
@@ -1390,7 +1464,8 @@ def phase_loop(ctx):
     stream in ``ctx["loop"]`` for phases C and E."""
     import torch
 
-    from monocular_visual_odometry_va4mr_torch.backend import posegraph_sim3
+    from monocular_visual_odometry_va4mr_torch.backend import (
+        posegraph, posegraph_sim3)
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.pipeline import (
@@ -1451,7 +1526,7 @@ def phase_loop(ctx):
     verify_t = Timed(pr, "verify_pairs")
     chunk_t = Timed(pr, "verify_chunk_replayed")  # a replay a chunk
     solve_t = Timed(posegraph_sim3, "optimize")
-    prune_t = Timed(posegraph_sim3, "optimize_consistent")
+    prune_t = Timed(posegraph_sim3, "optimize_consistent", peak=True)
     try:
         _, record, refine_s = diag_loop_repeat.loop_closure(
             vo, outs, fids, kf_images, bank=bank)
@@ -1487,7 +1562,7 @@ def phase_loop(ctx):
         solves=n_solves, solve_s=sum(solve_t.seconds),
         gn_ms_per_iteration=1e3 * sum(solve_t.seconds) / max(
             1, sum(len(costs) for _, costs in solve_t.results)),
-        refine_s=refine_s, ate_raw=res["ate"],
+        refine_s=refine_s, split=record["split"], ate_raw=res["ate"],
         ate_refined=float(ate.ate_rmse(refined, gt)) if ok_ref else None)
     print("loop_posegraph " + json.dumps(pg), flush=True)
     if not (len(kfs) >= LOOP_MIN_KEYFRAMES and len(far) >= LOOP_MIN_EDGES
@@ -1504,21 +1579,136 @@ def phase_loop(ctx):
     drift = dict(per_frame=SCALE_DRIFT,
                  total=SCALE_DRIFT ** (len(records) - 1),
                  ate_drifted=float(ate.ate_rmse(est_d, gt)))
-    for method in ("sim3", "se3"):
-        r = pr.refine_trajectory(d_records, d_bank, method=method)
-        drift[f"ate_{method}"] = (float(ate.ate_rmse(r, gt))
-                                  if r is not None else None)
+    drift_t = dict(sim3=Timed(posegraph_sim3, "optimize_consistent"),
+                   se3=Timed(posegraph, "optimize"))
+    try:
+        for method in ("sim3", "se3"):
+            r = pr.refine_trajectory(d_records, d_bank, method=method)
+            drift[f"ate_{method}"] = (float(ate.ate_rmse(r, gt))
+                                      if r is not None else None)
+    finally:
+        for t in drift_t.values():
+            t.restore()
     print("loop_drift " + json.dumps(drift), flush=True)
     if not (drift["ate_sim3"] is not None and drift["ate_sim3"]
             < DRIFT_GAIN * drift["ate_drifted"]):
         raise RuntimeError(f"Sim(3) did not cut the injected drift: {drift}")
+    gg = posegraph_graph(prune_t, solve_t, record["split"], drift_t)
 
     _, (_, outs_f, fids_f, info_f) = stream(frames)
     fl = trajectory_health(scene, fids_f, positions_of(outs_f.T_CW),
                            list(outs_f.status))
     fl["recoveries"] = info_f.recoveries
     print("loop_stream_float32 " + json.dumps(fl), flush=True)
-    res.update(posegraph=pg, drift=drift, float32=fl)
+    res.update(posegraph=pg, drift=drift, float32=fl, posegraph_graph=gg)
+    return res
+
+
+def rerun_eager(timed, k=0):
+    """Call ``k`` of a ``Timed`` wrapper once more, op by op
+    (``core.graphs.eager()``, no trace): (result, seconds)."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+
+    args, kw = timed.calls[k]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graphs.eager():
+        out = timed.inner(*args, **dict(kw, **(
+            {"trace": None} if "trace" in kw else {})))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solve_bits(out):
+    """The tensors of a pose-graph solve's result: the refined nodes and
+    the costs (and ``optimize_consistent``'s dropped edges)."""
+    import torch
+
+    return [out[0][0], out[1]] + (
+        [torch.from_numpy(out[2])] if len(out) > 2 else [])
+
+
+def posegraph_graph(prune_t, solve_t, split, drift_t):
+    """Phase B's pose-graph solves replayed (one graph of the GN iteration
+    a key, replayed once an iteration, ``core.graphs.scan``) against the
+    same solves op by op (``graphs.eager()``), each run once more:
+    ``optimize_consistent`` on phase B's graph (the first, leave-one-out
+    and final Sim(3) solves: nodes, costs and dropped edges bit for bit,
+    and its wall time replayed, capture included, below op by op), and the
+    drift-injection graphs' Sim(3) refinement and SE(3) solve, bit for
+    bit.  On phase B's first solve: the host ms of a replayed solve
+    (``REPLAY_REPS`` synced calls) and of an iteration both ways, the
+    device ms of a replayed solve behind a spin, and the dispatches,
+    device events and device ms of one solve replayed and of one
+    iteration both ways (``torch.profiler``, one call each); the capture
+    seconds, the replays and the peak device memory of the refinement.
+    Prints the ``posegraph_graph`` line; every check raises."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.backend import posegraph_sim3
+
+    out, replayed_s = prune_t.results[0], prune_t.seconds[0]
+    want, eager_s = rerun_eager(prune_t)
+    (graph,), kw = solve_t.calls[0]
+    iters = kw["iters"]
+    iterations = len(solve_t.calls) * iters
+
+    def solve(n=iters):
+        return posegraph_sim3.optimize(graph, **dict(kw, iters=n))
+
+    def eager(n=iters):
+        from monocular_visual_odometry_va4mr_torch.core import graphs
+
+        with graphs.eager():
+            return solve(n)
+
+    one_dev, one_events, one_disp = profile_calls(lambda: solve(1), reps=1)
+    one_dev_e, one_events_e, one_disp_e = profile_calls(lambda: eager(1),
+                                                        reps=1)
+    t0 = time.perf_counter()
+    solve_dev, solve_events, solve_disp = profile_calls(solve, reps=1)
+    profile_s = time.perf_counter() - t0
+    solve_host = host_ms(solve, DEVICE, reps=REPLAY_REPS, warmup=0)
+    res = dict(
+        phase_b=dict(
+            nodes=int(graph.S_CW.shape[0]), edges=int(graph.weight.shape[0]),
+            iters=iters, solves=len(solve_t.calls), iterations=iterations,
+            suspects=split.get("suspects"),
+            dropped=int(out[2].sum()),
+            bit_equal=bit_equal(solve_bits(out), solve_bits(want)),
+            replayed_s=replayed_s, eager_s=eager_s,
+            capture_s=split.get("capture_s"), captures=split.get("captures"),
+            replays=split.get("replays"), peak_mb=prune_t.peak_mb[0]),
+        iteration=dict(
+            replayed=dict(host_ms=solve_host / iters, dispatches=one_disp,
+                          device_events=one_events, device_ms=one_dev),
+            eager=dict(host_ms=1e3 * eager_s / iterations,
+                       dispatches=one_disp_e, device_events=one_events_e,
+                       device_ms=one_dev_e)),
+        solve=dict(host_ms=solve_host,
+                   device_ms=device_time_ms(solve, reps=2),
+                   profiled=dict(dispatches=solve_disp,
+                                 device_events=solve_events,
+                                 device_ms=solve_dev, seconds=profile_s)),
+        drift={})
+    for method, timed in drift_t.items():
+        res["drift"][method] = d = dict(calls=len(timed.calls))
+        if timed.calls:
+            d_want, d_eager_s = rerun_eager(timed)
+            d.update(bit_equal=bit_equal(solve_bits(timed.results[0]),
+                                         solve_bits(d_want)),
+                     replayed_s=timed.seconds[0], eager_s=d_eager_s)
+    print("posegraph_graph " + json.dumps(res), flush=True)
+    if not (res["phase_b"]["bit_equal"] and all(
+            d["calls"] == 1 and d["bit_equal"]
+            for d in res["drift"].values())):
+        raise RuntimeError(f"a replayed pose-graph solve differs from op by "
+                           f"op, or a drift refinement made no solve: {res}")
+    if not res["phase_b"]["replayed_s"] < res["phase_b"]["eager_s"]:
+        raise RuntimeError(f"phase B's replayed Sim(3) solves, capture "
+                           f"included, took longer than op by op: {res}")
     return res
 
 

@@ -11,19 +11,24 @@ CUDA device its kernel sums each node's terms in a fixed order (a stable
 sort of the indices, then each run of equal ones in turn), where
 ``index_add_`` would add in atomic order and two solves of one graph could
 differ; gauge on node 0, LM damping, an optional Huber IRLS factor;
-``torch.linalg.solve`` in float32.  The Gauss-Newton loop is a Python loop
-that returns the cost of every iteration.
+``solve_ex`` in float32.  The Gauss-Newton loop (:func:`gauss_newton`)
+returns the cost of every iteration; its body is one iteration
+(:func:`gn_iteration`), which a CUDA device replays as one graph an
+iteration, as the reference's ``lax.scan`` runs its body.
 
 :func:`gauss_newton` is shared with the Sim(3) graph
 (``backend/posegraph_sim3.py``), which differs only in the group.
 """
 from __future__ import annotations
 
+import functools
+import time
 from typing import Callable, NamedTuple
 
 import torch
 
-from ..core import lie
+from ..core import graphs, lie
+from ..core.linalg import solve
 
 
 class PoseGraph(NamedTuple):
@@ -107,58 +112,77 @@ def graph_cost(graph: PoseGraph) -> torch.Tensor:
     return 0.5 * torch.sum(graph.weight * torch.sum(r * r, -1))
 
 
+def gn_iteration(residual: Callable, exp: Callable, dof: int,
+                 damping: float, robust_delta: float, nodes, ii, jj, meas,
+                 weight):
+    """One Gauss-Newton iteration, the body of :func:`gauss_newton`'s loop
+    (the reference's ``lax.scan`` body): (nodes, edge tables, weight) ->
+    ((new nodes,), (cost,)).  Node 0 is the gauge anchor.  It reads
+    nothing on the host and makes no tensor from host data, so a CUDA
+    graph holds it whole: the solve is ``solve_ex`` (``linalg.solve``) and
+    the gauge is set with ``fill_`` / ``copy_``."""
+    N = nodes.shape[0]
+    dev, dt = nodes.device, nodes.dtype
+    z = torch.zeros((ii.shape[0], dof), dtype=dt, device=dev)
+    eye = torch.eye(dof, dtype=dt, device=dev)
+    Ti, Tj = nodes[ii], nodes[jj]
+    r = residual(z, z, Ti, Tj, meas)
+    Ji, Jj = edge_jacobians(residual, dof, Ti, Tj, meas)
+    # sqrt(w) on the residual AND the Jacobians: the normal equations
+    # weight each edge by w, as graph_cost does; the Huber IRLS factor
+    # composes the same way.
+    w_r = torch.clamp(robust_delta / torch.clamp(
+        torch.linalg.vector_norm(r, dim=-1), min=1e-12), max=1.0)
+    sw = torch.sqrt(weight * w_r)
+    r = r * sw[:, None]
+    Ji = Ji * sw[:, None, None]
+    Jj = Jj * sw[:, None, None]
+
+    # Dense normal equations, one (dof, dof) block per node pair.
+    Hb = torch.zeros((N, N, dof, dof), dtype=dt, device=dev)
+    HtH_ij = torch.einsum("eai,eaj->eij", Ji, Jj)
+    Hb.index_put_((ii, ii), torch.einsum("eai,eaj->eij", Ji, Ji),
+                  accumulate=True)
+    Hb.index_put_((jj, jj), torch.einsum("eai,eaj->eij", Jj, Jj),
+                  accumulate=True)
+    Hb.index_put_((ii, jj), HtH_ij, accumulate=True)
+    Hb.index_put_((jj, ii), HtH_ij.transpose(-1, -2), accumulate=True)
+    g = torch.zeros((N, dof), dtype=dt, device=dev)
+    g.index_put_((ii,), torch.einsum("eai,ea->ei", Ji, r), accumulate=True)
+    g.index_put_((jj,), torch.einsum("eai,ea->ei", Jj, r), accumulate=True)
+
+    # Gauge: freeze node 0.
+    Hb[0].fill_(0.0)
+    Hb[:, 0].fill_(0.0)
+    Hb[0, 0].copy_(eye)
+    g[0].fill_(0.0)
+
+    Hm = Hb.permute(0, 2, 1, 3).reshape(N * dof, N * dof)
+    Hm = Hm + damping * torch.eye(N * dof, dtype=dt, device=dev)
+    delta = solve(Hm, -g.reshape(-1)).reshape(N, dof)
+    return (exp(delta) @ nodes,), (0.5 * torch.sum(r * r),)
+
+
 def gauss_newton(graph, residual: Callable, exp: Callable, dof: int, *,
                  iters: int, damping: float, robust_delta):
     """Gauss-Newton over the nodes (field 0) of ``graph``; node 0 is the
-    gauge anchor.  Returns (refined nodes, costs (iters,))."""
+    gauge anchor.  Returns (refined nodes, costs (iters,)).
+
+    The loop is ``core.graphs.scan`` of :func:`gn_iteration`: on a CUDA
+    device one graph of the iteration per (group, N, E, damping,
+    robust_delta), captured at the first solve of those shapes and replayed
+    once an iteration by every later one (the nodes pass from one replay
+    to the next in the graph's own buffer, each cost lands in a device
+    (iters,) tensor); on the CPU the iteration op by op.  Either way the
+    bits are those of the iteration run ``iters`` times eagerly."""
     nodes, ii, jj, meas, weight = graph
-    N = nodes.shape[0]
-    dev, dt = nodes.device, nodes.dtype
     delta_rb = 1e30 if robust_delta is None else float(robust_delta)
-    z = torch.zeros((ii.shape[0], dof), dtype=dt, device=dev)
-    eye = torch.eye(dof, dtype=dt, device=dev)
-    costs = []
-    for _ in range(iters):
-        Ti, Tj = nodes[ii], nodes[jj]
-        r = residual(z, z, Ti, Tj, meas)
-        Ji, Jj = edge_jacobians(residual, dof, Ti, Tj, meas)
-        # sqrt(w) on the residual AND the Jacobians: the normal equations
-        # weight each edge by w, as graph_cost does; the Huber IRLS factor
-        # composes the same way.
-        w_r = torch.clamp(delta_rb / torch.clamp(
-            torch.linalg.vector_norm(r, dim=-1), min=1e-12), max=1.0)
-        sw = torch.sqrt(weight * w_r)
-        r = r * sw[:, None]
-        Ji = Ji * sw[:, None, None]
-        Jj = Jj * sw[:, None, None]
-
-        # Dense normal equations, one (dof, dof) block per node pair.
-        Hb = torch.zeros((N, N, dof, dof), dtype=dt, device=dev)
-        HtH_ij = torch.einsum("eai,eaj->eij", Ji, Jj)
-        Hb.index_put_((ii, ii), torch.einsum("eai,eaj->eij", Ji, Ji),
-                      accumulate=True)
-        Hb.index_put_((jj, jj), torch.einsum("eai,eaj->eij", Jj, Jj),
-                      accumulate=True)
-        Hb.index_put_((ii, jj), HtH_ij, accumulate=True)
-        Hb.index_put_((jj, ii), HtH_ij.transpose(-1, -2), accumulate=True)
-        g = torch.zeros((N, dof), dtype=dt, device=dev)
-        g.index_put_((ii,), torch.einsum("eai,ea->ei", Ji, r),
-                     accumulate=True)
-        g.index_put_((jj,), torch.einsum("eai,ea->ei", Jj, r),
-                     accumulate=True)
-
-        # Gauge: freeze node 0.
-        Hb[0] = 0.0
-        Hb[:, 0] = 0.0
-        Hb[0, 0] = eye
-        g[0] = 0.0
-
-        Hm = Hb.permute(0, 2, 1, 3).reshape(N * dof, N * dof)
-        Hm = Hm + damping * torch.eye(N * dof, dtype=dt, device=dev)
-        delta = torch.linalg.solve(Hm, -g.reshape(-1)).reshape(N, dof)
-        nodes = exp(delta) @ nodes
-        costs.append(0.5 * torch.sum(r * r))
-    return nodes, torch.stack(costs)
+    body = functools.partial(gn_iteration, residual, exp, dof,
+                             float(damping), delta_rb)
+    (nodes,), (costs,) = graphs.scan(
+        ("gauss_newton", residual, exp, dof, float(damping), delta_rb),
+        body, (nodes,), (ii, jj, meas, weight), iters)
+    return nodes, costs
 
 
 def optimize(graph: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
@@ -172,3 +196,21 @@ def optimize(graph: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
                                 iters=iters, damping=damping,
                                 robust_delta=robust_delta)
     return graph._replace(T_CW=T_out), costs
+
+
+class Laps:
+    """Seconds between calls, each ended by a device sync, added to
+    ``trace[name]`` (nothing without a trace)."""
+
+    def __init__(self, device, trace):
+        self.device, self.trace = device, trace
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        if self.trace is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.trace[name] = self.trace.get(name, 0.0) + now - self.t
+        self.t = now

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..core import lie
-from .posegraph import append_edge, chain_edges, edge_residuals, gauss_newton
+from .posegraph import (Laps, append_edge, chain_edges, edge_residuals,
+                        gauss_newton)
 
 
 class Sim3Graph(NamedTuple):
@@ -87,23 +88,35 @@ def optimize_consistent(graph: Sim3Graph, *, n_odo: int, iters: int = 15,
                         damping: float = 1e-4, robust_delta: float = 0.5,
                         suspect_factor: float = 1.5,
                         suspect_floor: float = 0.15, gain: float = 0.5,
-                        verbose: bool = False):
+                        verbose: bool = False, trace: dict = None):
     """Huber-robust optimize + leave-one-out consistency pruning of the loop
     edges (edges with index >= ``n_odo``), on the host.
 
     Re-optimizing WITHOUT a genuinely wrong edge collapses the total cost
     (everything else agrees), while removing a correct edge barely changes
     it.  Only suspects (loop residual > max(floor, factor * median)) pay the
-    extra solve.  Returns (optimized graph, costs, dropped (n_loops,)
+    extra solve.  Every solve has the graph's shapes and differs only in
+    its weights, so on a CUDA device one graph of the GN iteration serves
+    them all (``posegraph.gauss_newton``).  The residual norms and the
+    costs are read on the host where the reference reads them.  ``trace``:
+    a dict that receives the seconds of the first solve (the residual
+    norms read back included), of the leave-one-out solves and of the
+    final solve (``solve_first_s``, ``solve_loo_s``, ``solve_final_s``,
+    each ended by a device sync) and the suspects' count
+    (``suspects``).  Returns (optimized graph, costs, dropped (n_loops,)
     bool)."""
     kw = dict(iters=iters, damping=damping, robust_delta=robust_delta)
+    lap = Laps(graph.S_CW.device, trace)
     out, costs = optimize(graph, **kw)
     loop_rn = edge_residual_norms(out).cpu().numpy()[n_odo:]
+    lap("solve_first_s")
     dropped = np.zeros(len(loop_rn), bool)
     if len(loop_rn) == 0:
         return out, costs, dropped
     thresh = max(suspect_floor, suspect_factor * float(np.median(loop_rn)))
     suspects = [e for e in range(len(loop_rn)) if loop_rn[e] > thresh]
+    if trace is not None:
+        trace["suspects"] = len(suspects)
     base_cost = float(costs[-1])
     for e in suspects:
         w2 = graph.weight.clone()
@@ -115,8 +128,10 @@ def optimize_consistent(graph: Sim3Graph, *, n_odo: int, iters: int = 15,
                 print(f"posegraph: dropped inconsistent loop edge {e} "
                       f"(residual {loop_rn[e]:.3f}, cost "
                       f"{base_cost:.3f} -> {float(c2[-1]):.3f})")
+    lap("solve_loo_s")
     if dropped.any():
         w = graph.weight.clone()
         w[n_odo + torch.from_numpy(np.flatnonzero(dropped))] = 0.0
         out, costs = optimize(graph._replace(weight=w), **kw)
+        lap("solve_final_s")
     return out, costs, dropped

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .linalg import einsum, matmul
+from .linalg import einsum, matmul, solve
 
 _EPS = 1e-8
 
@@ -220,7 +220,9 @@ def sim3_log(S: torch.Tensor) -> torch.Tensor:
     s = _cbrt(torch.linalg.det(sR))
     sigma = torch.log(s)
     w = so3_log(sR / s[..., None, None])
-    v = torch.linalg.solve(_sim3_W(w, sigma), S[..., :3, 3])
+    # solve_ex (``linalg.solve``): torch.linalg.solve's bits without its
+    # check of the factorisation on the host, which no capture can hold.
+    v = solve(_sim3_W(w, sigma), S[..., :3, 3])
     return torch.cat([v, w, sigma[..., None]], -1)
 
 

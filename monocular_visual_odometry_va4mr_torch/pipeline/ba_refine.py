@@ -8,8 +8,10 @@ Host flow (``pipeline/runner.py``):
   * every frame, push (T_CW, lm_uv, lm_valid & lm_inlier, lm_gen) onto a
     host-side ring;
   * every ``ba_every`` frames, build a window from the ring and the current
-    ``lm_xyz``, run ``backend.ba.run_ba`` and write the refined current pose
-    and landmarks back into the state (and the refined poses into the ring).
+    ``lm_xyz``, run ``backend.ba.run_ba`` (``refine_window``: on a CUDA
+    device the replay of its graph, as the reference jits it) and write the
+    refined current pose and landmarks back into the state (and the refined
+    poses into the ring).
 
 Only landmarks observed in >= ``min_obs`` window frames by their current
 slot tenant participate; everything else passes through unchanged.  With a
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..backend import ba
+from ..core import graphs
 from ..core.camera import Camera
 from ..core.state import FrameState
 
@@ -80,16 +83,41 @@ def refine(state: FrameState, ring: BARing, cam: Camera, *, iters: int = 4,
         obs_uv=torch.from_numpy(np.stack(ring.obs_uv)).to(dev),
         obs_mask=torch.from_numpy(obs_mask & participate[None, :]).to(dev))
     if mesh is None:
-        out, _ = ba.run_ba(window, cam, iters=iters, huber_px=huber_px)
+        T_CW, lm_out = refine_window(window, cam, iters=iters,
+                                     huber_px=huber_px)
     else:
         out = _run_sharded(window, cam, mesh, iters=iters, huber_px=huber_px)
+        T_CW, lm_out = out.T_CW, out.lm_xyz
 
     part = torch.from_numpy(participate).to(dev)
-    lm_xyz = torch.where(part[:, None], out.lm_xyz, state.lm_xyz)
-    refined = out.T_CW.cpu().numpy()
+    lm_xyz = torch.where(part[:, None], lm_out, state.lm_xyz)
+    refined = T_CW.cpu().numpy()
     for k in range(W):
         ring.poses[k] = refined[k]
-    return state.replace(T_CW=out.T_CW[-1], lm_xyz=lm_xyz)
+    return state.replace(T_CW=T_CW[-1], lm_xyz=lm_xyz)
+
+
+def refine_window(window: ba.BAWindow, cam: Camera, *, iters: int,
+                  huber_px: float):
+    """``backend.ba.run_ba`` of one window: (refined T_CW (W, 4, 4),
+    refined lm_xyz (L, 3)).  On a CUDA device the replay of its graph in
+    ``core.graphs.shared`` (the counterpart of the reference's
+    ``jax.jit(run_ba)``): one graph per camera, ``iters``, ``huber_px`` and
+    window shape (W, L), over static copies of the window; on the CPU
+    (and inside ``core.graphs.eager()``) ``run_ba`` op by op.  The same
+    bits either way."""
+    dev = window.T_CW.device
+    if not graphs.replaying(dev):
+        out, _ = ba.run_ba(window, cam, iters=iters, huber_px=huber_px)
+        return out.T_CW, out.lm_xyz
+
+    def solve(*tensors):
+        out, _ = ba.run_ba(ba.BAWindow(*tensors), cam, iters=iters,
+                           huber_px=huber_px)
+        return out.T_CW, out.lm_xyz
+
+    return tuple(graphs.shared(dev).call(
+        ("run_ba", cam, iters, float(huber_px)), solve, tuple(window)))
 
 
 def _run_sharded(window: ba.BAWindow, cam: Camera, mesh, **kw) -> ba.BAWindow:

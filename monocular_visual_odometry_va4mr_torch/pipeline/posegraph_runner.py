@@ -31,13 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..backend import posegraph, posegraph_sim3
-from ..core import linalg
+from ..core import graphs, linalg
 from ..ops import essential, match, ransac, triangulate
 
 
@@ -374,14 +375,16 @@ def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
     banks (the VO's when None); ``generator``: the generator it is given,
     one seeded from ``seed`` on the VO's device when None.  ``cam``: the
     VO's camera when None.  ``trace``: a dict that receives the
-    verifier's outputs per pair (``"verified"``) and the loops returned
-    (``"loops"``).
+    verifier's outputs per pair (``"verified"``), the loops returned
+    (``"loops"``) and the seconds of the retrieval and of the verification
+    (``"retrieval_s"``, ``"verification_s"``).
 
     Returns [(i_kf, j_kf, R, t_dir, n_inl, t_i, t_j)]: t_i / t_j are the
     loop baseline measured in keyframe i's / j's local odometry scale
     (:func:`_metric_baseline`; None when unobservable)."""
     vo = bank.vo
     kfs = bank.keyframes
+    lap = posegraph.Laps(vo.device, trace)
     if mode == "retrieval":
         pairs = retrieve_candidates(bank, min_gap_frames=min_gap_frames,
                                     topk=topk)
@@ -389,6 +392,7 @@ def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
         pairs = [(a, b) for a in range(len(kfs))
                  for b in range(a + 1, len(kfs))
                  if kfs[b].frame - kfs[a].frame >= min_gap_frames]
+    lap("retrieval_s")
     if not pairs:
         return []
     if generator is None:
@@ -419,6 +423,7 @@ def detect_loops(bank: KeyframeBank, cam=None, *, min_gap_frames: int = 30,
         t_i = _metric_baseline(kfs[a], kfs[a].uv, z_i, m)
         t_j = _metric_baseline(kfs[b], kfs[b].uv[idx1], z_j, m)
         loops.append((a, b, R, t, int(n_inl), t_i, t_j))
+    lap("verification_s")
     return loops
 
 
@@ -441,7 +446,16 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
     Huber-robust solve with leave-one-out pruning; ``"se3"``: loop edges
     borrow |t| from the current estimate.  Non-keyframe poses ride along
     with their preceding keyframe's correction (rescaled by the node's scale
-    on Sim(3)).  ``trace``: as :func:`detect_loops`'s."""
+    on Sim(3)).  ``trace``: as :func:`detect_loops`'s, and the seconds of
+    each later stage, each ended by a device sync: building the graph
+    (``"graph_s"``), the solves with their nodes read back (``"solve_s"``;
+    within it the first solve, the leave-one-out solves and the final
+    solve, ``"solve_first_s"``, ``"solve_loo_s"``, ``"solve_final_s"``, and
+    ``"suspects"``: ``optimize_consistent``'s; on SE(3) the one solve is
+    the first), the graphs captured, their seconds (part of the first
+    solve's) and the replays made by the solves (``"captures"``,
+    ``"capture_s"``, ``"replays"``; 0 off a CUDA device), and the records'
+    recomposition (``"recompose_s"``)."""
     kfs = bank.keyframes
     if len(kfs) < 3:
         return None
@@ -454,8 +468,10 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
               f"{len(loops)} loop edges")
     if not loops:
         return None
+    dev = bank.vo.device
+    lap = posegraph.Laps(dev, trace)
     T_nodes = torch.from_numpy(np.stack([k.T_CW for k in kfs]).astype(
-        np.float32)).to(bank.vo.device)
+        np.float32)).to(dev)
 
     if method == "sim3":
         graph = posegraph_sim3.from_se3_chain(T_nodes)
@@ -472,9 +488,11 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
         # Quorum: a single loop edge cannot be checked against another.
         if n_edges < min_loop_edges:
             return None
+        lap("graph_s")
+        held = _GraphCounts(dev)
         out, _, dropped = posegraph_sim3.optimize_consistent(
             graph, n_odo=len(kfs) - 1, iters=iters,
-            robust_delta=robust_delta, verbose=verbose)
+            robust_delta=robust_delta, verbose=verbose, trace=trace)
         if dropped.all():
             return None
         T_new = posegraph_sim3.corrected_poses(out).cpu().numpy()
@@ -494,10 +512,16 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
             T_meas[:3, 3] = t_dir * np.linalg.norm(T_rel_est[:3, 3])
             graph = posegraph.add_edge(graph, a, b, torch.from_numpy(T_meas),
                                        weight=loop_weight)
+        lap("graph_s")
+        held = _GraphCounts(dev)
         out, _ = posegraph.optimize(graph, iters=iters,
                                     robust_delta=robust_delta)
         T_new = out.T_CW.cpu().numpy()
         node_scale = np.ones(len(kfs))
+        if trace is not None:  # the one solve, its nodes read back
+            trace["solve_first_s"] = time.perf_counter() - lap.t
+    lap("solve_s")
+    held.into(trace)
 
     # Each record's pose relative to its keyframe, rescaled by the node's
     # scale correction, recomposed onto the corrected keyframe pose.
@@ -515,7 +539,26 @@ def refine_trajectory(records, bank: KeyframeBank, cam=None, *,
             rel = inv_old @ T_WC
             rel[:3, 3] /= node_scale[n]
             positions[ridx] = (T_new_WC @ rel)[:3, 3]
+    lap("recompose_s")
     return positions
+
+
+class _GraphCounts:
+    """The back end's graphs captured, their capture seconds and the
+    replays made since it was made (``core.graphs.shared``)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.captures, self.capture_s = graphs.captures(device)
+        self.replays = graphs.replays(device)
+
+    def into(self, trace):
+        if trace is None:
+            return
+        captures, capture_s = graphs.captures(self.device)
+        trace.update(captures=captures - self.captures,
+                     capture_s=capture_s - self.capture_s,
+                     replays=graphs.replays(self.device) - self.replays)
 
 
 @dataclasses.dataclass

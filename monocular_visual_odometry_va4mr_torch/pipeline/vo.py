@@ -28,8 +28,10 @@ geometry: ``jax.jit(_bootstrap_geom_impl)``), the keyframe bank's SIFT
 (``posegraph_runner.verify_chunk``).  torch's ``eigh`` and ``svd`` read
 their error codes on the host on the card, which no capture allows, so a
 function that calls them is captured in segments: the capture ends before
-each such call, which runs between the replays (``_Segments``).  The
-geometry's RANSAC bank is drawn before its replay, as the step's is.
+each such call, which runs between the replays (``core/graphs.py::
+_Segments``).  The geometry's RANSAC bank is drawn before its replay, as
+the step's is.  The capture machinery (``GraphCache``) lives in
+``core/graphs.py``, where the back end's graphs reach it too.
 
 Batched, as in the reference's ``jax.jit(jax.vmap(_step_impl))``
 (``parallel/seq_dp.py``): ``step_batch(states, images, generators)`` steps S
@@ -87,14 +89,12 @@ Departures from the reference, by design:
 from __future__ import annotations
 
 import functools
-import gc
-import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core import lie, linalg
+from ..core.graphs import _HOST_WAITS, GraphCache  # noqa: F401 (tests)
 from ..core.camera import Camera
 from ..core.config import PipelineConfig
 from ..core.slots import (alloc_slots, scatter_add_rows, scatter_rows,
@@ -824,19 +824,6 @@ def batch_frame_outputs(states: FrameState, landmarks: bool = False):
         states.tensors())
 
 
-# The kernel wrappers whose launch counts a replay adds to.
-_COUNTED = (klt_pallas2.klt_lk, klt_pallas.klt_v1)
-
-
-def _launch_counts() -> Tuple[int, ...]:
-    return tuple(fn.launches for fn in _COUNTED)
-
-
-def _set_launch_counts(counts: Tuple[int, ...]) -> None:
-    for fn, n in zip(_COUNTED, counts):
-        fn.launches = n
-
-
 class _Buffers:
     """The static buffers of one batch size: the state (one packed row, or
     S rows), the image per upload dtype, the draws and the outputs."""
@@ -852,166 +839,6 @@ class _Buffers:
         self.outputs = {lm: torch.empty(lead + (p.nbytes,),
                                         dtype=torch.uint8, device=dev)
                         for lm, p in vo.outputs.items()}
-
-
-# The library calls that wait on the device inside them: torch reads their
-# error codes (``eigh``'s; ``svd``'s convergence) on the host, which no
-# capture allows.  A graph whose function makes one is captured in segments
-# around it (``GraphCache``).
-_HOST_WAITS = (torch.ops.aten._linalg_eigh.default,
-               torch.ops.aten._linalg_svd.default)
-
-
-class _Segments(TorchDispatchMode):
-    """What one capture records: graphs, and between them the calls of
-    ``_HOST_WAITS`` that no graph can hold.  Active while a function is
-    captured, it ends the capture before each such call, replays the graph
-    it just ended (a captured graph has run nothing: without the replay the
-    call would read whatever earlier replays left in the pool, and could
-    fail on it), runs the call, keeps its arguments and its result, and
-    begins a new capture after it.  ``replay`` replays the graphs in turn,
-    and runs each call between them again on the same arguments (the
-    tensors the graphs write), its result copied into the tensors the
-    later graphs read."""
-
-    def __init__(self, pool):
-        super().__init__()
-        self.pool = pool
-        self.steps = []  # CUDAGraph, (func, args, kwargs, result), ...
-        self.graph = None
-
-    def begin(self):
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.capture_begin(pool=self.pool,
-                                 capture_error_mode="thread_local")
-
-    def end(self):
-        if self.graph is not None:
-            self.graph.capture_end()
-            self.steps.append(self.graph)
-            self.graph = None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func not in _HOST_WAITS:
-            return func(*args, **kwargs)
-        self.end()
-        self.steps[-1].replay()
-        out = func(*args, **kwargs)
-        self.steps.append((func, args, kwargs, out))
-        self.begin()
-        return out
-
-    @staticmethod
-    def replay(steps) -> None:
-        for step in steps:
-            if isinstance(step, torch.cuda.CUDAGraph):
-                step.replay()
-            else:
-                func, args, kwargs, out = step
-                for kept, new in zip(out, func(*args, **kwargs)):
-                    kept.copy_(new)
-
-
-class GraphCache:
-    """CUDA graphs keyed by their caller, in one memory pool: the capture and
-    replay that ``StepGraphs`` and ``VisualOdometry``'s other graphs
-    (``graphed``: the bootstrap's pieces, SIFT, the loop verifier's chunk)
-    share.
-
-    ``capture(key, record, warm_up)`` runs ``warm_up()`` on a side stream
-    (it builds and loads the kernels and the library handles, and makes
-    the constant tensors, ``core.linalg.constant`` / ``kept``; its result
-    is dropped), then captures ``record()`` on it with Python's garbage
-    collector collected and off (a graph it frees, one of a VO that is
-    gone, would end the capture: no graph may be destroyed while a stream
-    captures) and ``capture_error_mode="thread_local"``.  A call that
-    waits on the device inside it (``_HOST_WAITS``) ends one capture and
-    begins the next (``_Segments``), so a key may hold several graphs with
-    such calls between them.  Capturing records how many launches of each
-    counted kernel the graphs hold; ``replay(key)`` adds them to the
-    wrappers' counts, and the warm-up and the capture add nothing.
-
-    ``call(key, fn, inputs)`` is the graph of a function of tensors that
-    returns a tuple of tensors, one graph per key and the inputs' shapes
-    and dtypes: it reads static copies of the inputs and packs the outputs
-    into one buffer (``core.state.Packing``).  Each call copies the inputs
-    in, replays, and returns the outputs as views of one copy of that
-    buffer (on the host if ``host``), so a later replay leaves them as they
-    are.  Every failure raises: nothing falls back to running eagerly."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[tuple, tuple] = {}  # key -> (steps, launches held)
-        self.capture_s: Dict[tuple, float] = {}  # warm-up included
-        self.replays = 0
-        self._io: Dict[tuple, tuple] = {}  # call's key -> (inputs, out, buf)
-
-    def capture(self, key, record: Callable[[], None],
-                warm_up: Callable[[], object]) -> None:
-        t0 = time.perf_counter()
-        counts = _launch_counts()
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            warm_up()
-        warmed = _launch_counts()
-        segments = _Segments(self.pool)
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            torch.cuda.synchronize(self.device)
-            with torch.cuda.stream(side):
-                segments.begin()
-                try:
-                    with segments:
-                        record()
-                finally:
-                    segments.end()
-        finally:
-            if collecting:
-                gc.enable()
-        main.wait_stream(side)
-        held = tuple(a - b for a, b in zip(_launch_counts(), warmed))
-        _set_launch_counts(counts)
-        torch.cuda.synchronize(self.device)
-        self.graphs[key] = (segments.steps, held)
-        self.capture_s[key] = time.perf_counter() - t0
-
-    def replay(self, key) -> None:
-        steps, held = self.graphs[key]
-        _Segments.replay(steps)
-        _set_launch_counts(tuple(c + h for c, h
-                                 in zip(_launch_counts(), held)))
-        self.replays += 1
-
-    def call(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
-             host: bool = False) -> List[torch.Tensor]:
-        key = (key,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
-        if key in self._io:
-            for buf, t in zip(self._io[key][0], inputs):
-                buf.copy_(t)
-        else:
-            static = [t.to(self.device, copy=True) for t in inputs]
-            out = {}
-
-            def warm_up():
-                out["packing"] = Packing(fn(*static))
-
-            def record():
-                packing = out["packing"]
-                out["buf"] = torch.empty(packing.nbytes, dtype=torch.uint8,
-                                         device=self.device)
-                packing.pack(out["buf"], fn(*static))
-
-            self.capture(key, record, warm_up)
-            self._io[key] = (static, out["packing"], out["buf"])
-        _, packing, buf = self._io[key]
-        self.replay(key)
-        return packing.views(buf.cpu() if host else buf.clone())
 
 
 class StepGraphs(GraphCache):

@@ -28,7 +28,10 @@ the card's ``nvidia-smi`` name and power limit, where the error grows
 (``drift_windows``: per 256 streamed frames the globally aligned error,
 raw and refined, and the stretch's own ATE against 2% of its path), and
 the JAX tool's TPU record (``BENCH_stream_2761.json``) beside it as
-``jax_*`` fields, read only.  Exit code 2 when the run is unhealthy, as
+``jax_*`` fields, read only, and the post-pass's seconds by stage beside
+its total (``posegraph_split``: bank SIFT, retrieval, verification, the
+graph, the GN solves with their capture seconds and replays, the
+recomposition; ``refine``).  Exit code 2 when the run is unhealthy, as
 the JAX tool.
 
 Nothing is written outside ``build/`` by default: the line goes to
@@ -133,17 +136,38 @@ def stream_sequence(vo, spec, *, bootstrap=8, block=64, posegraph_every=0,
                 klt_lk_launches_expected=expected)
 
 
+# The post-pass's stages in ``posegraph_split``, in order; their seconds add
+# up to ``posegraph_wall_s`` (the capture seconds are part of the first
+# solve's, the solves' parts of ``solve_s``).
+SPLIT_STAGES = ("bank_sift_s", "retrieval_s", "verification_s", "graph_s",
+                "solve_s", "recompose_s")
+SPLIT_PARTS = ("solve_first_s", "solve_loo_s", "solve_final_s", "capture_s")
+SPLIT_COUNTS = ("suspects", "captures", "replays")
+
+
 def refine(vo, run, every):
     """Step 6: the keyframe bank of the stream and its Sim(3) pose graph;
-    (bank, refined positions or None, seconds)."""
+    (bank, refined positions or None, seconds, the split by stage).  The
+    split (``refine_trajectory``'s trace): the bank's SIFT, the retrieval,
+    the verification, building the graph, the GN solves (the first, the
+    leave-one-out ones, the final one, the capture seconds within the
+    first; the suspects, the graphs captured and the replays) and the
+    records' recomposition, each ended by a device sync; a stage the run
+    did not reach reads 0."""
     from ..pipeline import posegraph_runner
 
     t0 = time.perf_counter()
     bank = posegraph_runner.bank_from_stream(vo, run["outs"], run["ids"],
                                              run["kf_images"], every=every)
+    harness.sync(vo.device)
+    trace = {"bank_sift_s": time.perf_counter() - t0}
     refined = posegraph_runner.refine_stream_trajectory(
-        run["outs"], run["ids"], bank, vo.cam, method="sim3", verbose=True)
-    return bank, refined, time.perf_counter() - t0
+        run["outs"], run["ids"], bank, vo.cam, method="sim3", verbose=True,
+        trace=trace)
+    harness.sync(vo.device)
+    split = {k: float(trace.get(k, 0.0)) for k in SPLIT_STAGES + SPLIT_PARTS}
+    split.update({k: int(trace.get(k, 0)) for k in SPLIT_COUNTS})
+    return bank, refined, time.perf_counter() - t0, split
 
 
 def drift_profile(ids, est, gt, status, refined=None, window=WINDOW):
@@ -253,7 +277,8 @@ def main(argv=None) -> int:
     print(f"streamed {len(ids)} frames in {run['wall_s']:.1f}s = "
           f"{run['fps']:.1f} fps (lost {info.lost}, recoveries "
           f"{info.recoveries})", file=sys.stderr, flush=True)
-    bank, refined, pg_wall = refine(vo, run, args.posegraph_every)
+    bank, refined, pg_wall, pg_split = refine(vo, run,
+                                              args.posegraph_every)
 
     est = harness.positions_of(outs.T_CW)
     gt = spec.gt_poses[ids][:, :3, 3]
@@ -281,6 +306,7 @@ def main(argv=None) -> int:
         "ate_rmse_raw": ate_raw,
         "ate_rmse_posegraph": ate_pg if np.isfinite(ate_pg) else None,
         "keyframes": len(bank.keyframes), "posegraph_wall_s": pg_wall,
+        "posegraph_split": pg_split,
         "path_m": path, "ref_fps": None, "ref_ate": None,
         "ref_completed": None, "ref_died_at": None, "ate_bound": bound,
         "healthy": healthy,

@@ -88,7 +88,10 @@ def loop_closure(vo, outs, fids, images, bank=None):
     """One run of the loop closure on a streamed run: its bank (made here
     unless given), the verifier's outputs, the loop edges and the refined
     positions (``refine_stream_trajectory``, Sim(3)), as a record of
-    ``STAGES``, and its seconds."""
+    ``STAGES`` with the refinement's seconds by stage under ``"split"``
+    (``refine_trajectory``'s trace: retrieval, verification, graph,
+    solves, recomposition, the graphs captured and replayed), and its
+    seconds."""
     from ..pipeline import posegraph_runner as pr
 
     t0 = time.perf_counter()
@@ -107,7 +110,9 @@ def loop_closure(vo, outs, fids, images, bank=None):
         matches=[(v[0], v[8]) for v in verified],
         verification=[v[1:8] + v[9:] for v in verified],
         edges=seen.get("loops", []),
-        refined=refined), time.perf_counter() - t0
+        refined=refined,
+        split={k: v for k, v in seen.items()
+               if k not in ("verified", "loops")}), time.perf_counter() - t0
 
 
 def same(a, b) -> bool:

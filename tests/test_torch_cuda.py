@@ -1016,7 +1016,7 @@ else:
     ("eigh", False), ("svd", False), ("det", True), ("solve_ex", True)])
 def test_only_the_host_wait_calls_fail_to_capture(cuda, name, captured):
     """torch's ``eigh`` and ``svd`` read their error codes on the host, so
-    no capture can hold them (``pipeline/vo.py``'s ``_HOST_WAITS``, which
+    no capture can hold them (``core/graphs.py``'s ``_HOST_WAITS``, which
     ``GraphCache`` captures around); ``det`` and ``solve_ex`` capture."""
     out = subprocess.run([sys.executable, "-c",
                           CAPTURE_PROBE.format(name=name)],
@@ -1053,3 +1053,153 @@ def test_segmented_capture_reads_what_the_graph_before_it_computed(cuda):
             assert same_bits(x, y), describe(x, y)
     steps, _ = cache.graphs[("eigh", ((64, 3, 3), torch.float32))]
     assert len(steps) == 3  # a graph, the eigh call, a graph
+
+
+# --- the back end's graphs ---------------------------------------------------
+
+
+def posegraph_chain(group, n, device="cpu", seed=5, bogus=False):
+    """A drifted circle of ``n`` nodes (Sim(3): drifting in scale too) with
+    n // 3 loop edges measured from the truth, and with ``bogus`` one
+    confidently wrong edge more, as ``group``'s graph on ``device``."""
+    from monocular_visual_odometry_va4mr_torch.backend import (
+        posegraph, posegraph_sim3)
+    from monocular_visual_odometry_va4mr_torch.core import lie
+
+    gen = torch.Generator().manual_seed(seed)
+    ang = torch.arange(n) * (2 * np.pi / n)
+    xi = torch.zeros(n, 6)
+    xi[:, 4] = ang
+    T_WC = lie.se3_exp(xi)
+    T_WC[:, 0, 3] = 5 * torch.sin(ang)
+    T_WC[:, 2, 3] = 5 * (1 - torch.cos(ang))
+    gt = lie.invert_se3(T_WC)
+    noise = torch.cat([0.03 * torch.randn(n, 3, generator=gen),
+                       0.01 * torch.randn(n, 3, generator=gen)], 1)
+    drifted = [gt[0]]
+    for k in range(1, n):
+        rel = gt[k] @ lie.invert_se3(gt[k - 1])
+        if group == "sim3":
+            rel[:3, 3] *= 1.004 ** k
+        drifted.append(lie.se3_exp(noise[k]) @ rel @ drifted[-1])
+    nodes = torch.stack(drifted).to(device)
+    loops = [((37 * k) % n, (37 * k + n // 2) % n) for k in range(n // 3)]
+    g = (posegraph.odometry_edges(nodes) if group == "se3"
+         else posegraph_sim3.from_se3_chain(nodes))
+    for i, j in loops:
+        rel = gt[j] @ lie.invert_se3(gt[i])
+        if group == "se3":
+            g = posegraph.add_edge(g, i, j, rel, weight=3.0)
+        else:
+            g = posegraph_sim3.add_loop_edge(g, i, j, rel[:3, :3],
+                                             rel[:3, 3], 1.0, weight=3.0)
+    if bogus:
+        g = posegraph_sim3.add_loop_edge(g, 3, n // 2, torch.eye(3),
+                                         torch.tensor([0.1, 0.0, 0.1]), 2.5,
+                                         weight=3.0)
+    return g
+
+
+def solve_kw(group):
+    return (dict(iters=15, damping=1e-5, robust_delta=0.5) if group == "se3"
+            else dict(iters=15, damping=1e-4, robust_delta=0.5))
+
+
+@pytest.mark.parametrize("n", [78, 342])
+@pytest.mark.parametrize("group", ["se3", "sim3"])
+def test_replayed_pose_graph_solve_equals_op_by_op(cuda, group, n):
+    """``optimize`` on the card replays one graph of the GN iteration per
+    iteration (``core.graphs.scan``): nodes and every cost bit for bit the
+    same solve op by op (``graphs.eager()``), at phase B's 78 nodes and at
+    the reference scale's 342.  A second solve of other nodes with the
+    same shapes replays the same graph from the caller's nodes, not from
+    what the first solve left."""
+    from monocular_visual_odometry_va4mr_torch.backend import (
+        posegraph, posegraph_sim3)
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+
+    optimize = posegraph.optimize if group == "se3" else \
+        posegraph_sim3.optimize
+    kw = solve_kw(group)
+    g1 = posegraph_chain(group, n, cuda)
+    g2 = posegraph_chain(group, n, cuda, seed=6)
+    captured = graphs.captures(cuda)[0]
+    for g in (g1, g2, g1):
+        replays = graphs.replays(cuda)
+        out, costs = optimize(g, **kw)
+        assert graphs.replays(cuda) == replays + kw["iters"]
+        with graphs.eager():
+            want, want_costs = optimize(g, **kw)
+        assert same_bits(out[0], want[0]), describe(out[0], want[0])
+        assert same_bits(costs, want_costs), describe(costs, want_costs)
+        assert costs.is_cuda and costs[-1] < 0.5 * costs[0]
+    assert graphs.captures(cuda)[0] == captured + 1
+
+
+def test_optimize_consistent_captures_once(cuda):
+    """Every solve of ``optimize_consistent`` has one graph's shapes: one
+    capture, (1 + suspects + 1) x iters replays when it drops an edge, and
+    the outcome bit for bit its run op by op."""
+    from monocular_visual_odometry_va4mr_torch.backend import posegraph_sim3
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+
+    n = 50
+    g = posegraph_chain("sim3", n, cuda, bogus=True)
+    captured, replays = graphs.captures(cuda)[0], graphs.replays(cuda)
+    trace = {}
+    out, costs, dropped = posegraph_sim3.optimize_consistent(
+        g, n_odo=n - 1, iters=15, trace=trace)
+    assert dropped[-1]  # the wrong edge
+    assert graphs.captures(cuda)[0] == captured + 1
+    assert graphs.replays(cuda) - replays == (2 + trace["suspects"]) * 15
+    with graphs.eager():
+        want, want_costs, want_dropped = posegraph_sim3.optimize_consistent(
+            g, n_odo=n - 1, iters=15)
+    assert list(dropped) == list(want_dropped)
+    assert same_bits(out.S_CW, want.S_CW) and same_bits(costs, want_costs)
+
+
+def test_ba_refine_replays_bit_equal_to_eager(cuda):
+    """The runner's windowed BA (``ba_refine.refine``) replays its graph on
+    the card (one capture per window shape, a replay a call), bit for bit
+    the same refinement op by op, on two windows in turn."""
+    import copy
+
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+    from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+    from monocular_visual_odometry_va4mr_torch.core.config import (
+        CapacityConfig, PipelineConfig)
+    from monocular_visual_odometry_va4mr_torch.core.state import init_state
+    from monocular_visual_odometry_va4mr_torch.pipeline import ba_refine
+    from test_torch_parallel import K, WELL_POSED, make_ba_problem
+
+    W, L = 8, 256
+    cfg = PipelineConfig(capacity=CapacityConfig(L, 8), image_shape=(32, 32))
+    cam = Camera.from_matrix(K)
+    captured = graphs.captures(cuda)[0]
+    for seed in (1, 2):
+        T, X, obs, mask = make_ba_problem(np.random.default_rng(seed), W=W,
+                                          L=L, **WELL_POSED)
+        state = init_state(cfg, (torch.zeros(32, 32, device=cuda),))
+        state = state.replace(T_CW=torch.from_numpy(T[-1]).to(cuda),
+                              lm_xyz=torch.from_numpy(X).to(cuda),
+                              lm_valid=torch.ones(L, dtype=torch.bool,
+                                                  device=cuda),
+                              lm_gen=torch.zeros(L, dtype=torch.int32,
+                                                 device=cuda))
+        ring = ba_refine.BARing(window=W, poses=list(T), obs_uv=list(obs),
+                                obs_mask=list(mask),
+                                obs_gen=[np.zeros(L, np.int32)] * W)
+        ring_eager = copy.deepcopy(ring)
+        replays = graphs.replays(cuda)
+        out = ba_refine.refine(state, ring, cam)
+        assert graphs.replays(cuda) == replays + 1
+        with graphs.eager():
+            want = ba_refine.refine(state, ring_eager, cam)
+        for name in ("T_CW", "lm_xyz"):
+            a, b = getattr(out, name), getattr(want, name)
+            assert same_bits(a, b), (name, describe(a, b))
+        assert not torch.equal(out.lm_xyz, state.lm_xyz)
+        for a, b in zip(ring.poses, ring_eager.poses):
+            assert np.array_equal(a, b)
+    assert graphs.captures(cuda)[0] == captured + 1

@@ -8,7 +8,9 @@ against the JAX side's scripts they stand in for.
   equal as ``np.loadtxt`` reads them; ``scene.json`` equal.
 * ``bench_stream_2761`` on a 40-frame loop root prints the JAX keys,
   writes its block checkpoint, and leaves ``BENCH_stream_2761.json`` and
-  ``out/`` as they were (bytes and mtimes).  The root is 192x320 with the
+  ``out/`` as they were (bytes and mtimes), and splits its post-pass by
+  stage (``posegraph_split``: bank SIFT, retrieval, verification, graph,
+  solves, recomposition) within 5% of its total.  The root is 192x320 with the
   scene's own K in place of KITTI's (``load_kitti`` carries KITTI-05's,
   which fits 376x1241 only): at 120x160 the loop world leaves the KLT
   bootstrap no landmarks.
@@ -178,6 +180,24 @@ def test_bench_stream_2761_prints_the_jax_keys(stream_2761):
     saved = json.loads((stream_2761["build"] / "stream_2761.json")
                        .read_text())
     assert saved == line
+
+
+def test_bench_stream_2761_splits_the_post_pass(stream_2761):
+    """The post-pass's seconds by stage (``posegraph_split``) add up to its
+    total within 5%; the solves' parts lie within the solves' seconds, and
+    the CPU captures and replays nothing."""
+    line = stream_2761["line"]
+    split = line["posegraph_split"]
+    names = (bench_stream_2761.SPLIT_STAGES + bench_stream_2761.SPLIT_PARTS
+             + bench_stream_2761.SPLIT_COUNTS)
+    assert set(split) == set(names)
+    assert split["bank_sift_s"] > 0 and all(split[k] >= 0 for k in names)
+    stages = sum(split[k] for k in bench_stream_2761.SPLIT_STAGES)
+    assert stages == pytest.approx(line["posegraph_wall_s"], rel=0.05)
+    assert (split["solve_first_s"] + split["solve_loo_s"]
+            + split["solve_final_s"]) <= split["solve_s"]
+    assert split["captures"] == split["replays"] == 0
+    assert split["capture_s"] == 0.0
 
 
 def test_bench_stream_2761_writes_block_checkpoints(stream_2761):
