@@ -69,12 +69,25 @@ exits nonzero:
    and the forced wrap at 600x800.  The JAX record of the same run (``BENCH_datasets.json``) is
    printed beside it, read only.
 4. The block driver on the same path: ``scan_driver.run_streaming`` over
-   frames 5..99 uploaded as uint8, blocks of 16 with a padded tail.
+   frames 5..99 uploaded as uint8, blocks of 16 with a padded tail: each
+   block's frames in chunks of 8 (``ba.every``), one replay of a chunk's
+   CUDA graph each (one graph per pattern of in-step BA frames among the
+   8: one, the BA at the same place in every chunk), the first 8 frames
+   (no BA frame: the ring is not yet full) and the last block's 7 frames
+   past its chunk replayed one by one.
    ``klt_lk`` must have launched 3 times per frame; statuses equal to, and
    positions within 1e-3 of the path of, a step loop over the same frames
    with the same per-frame generators; the health gate of phase 3.  A
-   block of 8 frames under the profiler: host dispatches and device events
-   a frame, with 3 ``klt_lk`` device events a frame.
+   block of 8 frames under the profiler (frames 13..20, one chunk with its
+   BA frame, from the step loop's state at frame 12): host dispatches and
+   device events a frame, with 3 ``klt_lk`` device events a frame.  The ``block_graph``
+   line: chunk replays and frames replayed one by one, the chunk graphs
+   (segments, host-wait calls between them, capture seconds, replays),
+   peak device memory of the stream with its captures, the largest
+   position difference from the step loop and whether it is bit for bit,
+   and host dispatches and device ms a frame of the profiled block beside
+   a loop of ``step`` over the same 8 frames; it fails without chunk
+   replays or with more than 2 host dispatches a frame.
 5. The v1 LK kernel (``klt_v1``) against its plain version, the same three
    shapes and tolerances, and an input whose every template meets the
    reference's template row wrap (``wrap_call``: slab row yi % 8 == 0);
@@ -912,6 +925,8 @@ def phase_stream(scene, frames, vo):
     from monocular_visual_odometry_va4mr_torch.ops import klt_pallas2 as k2
     from monocular_visual_odometry_va4mr_torch.pipeline import (
         runner, scan_driver)
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+        frame_outputs)
 
     b = BOOTSTRAP_STRIDE
     u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames]
@@ -921,17 +936,26 @@ def phase_stream(scene, frames, vo):
         return vo.bootstrap(fr[0], fr[b], intermediate=fr[1:b],
                             generator=runner.frame_generator(0, 0, vo.device))
 
-    def loop(state, fr):
+    def loop(state, fr, fields=None):
+        """A ``step`` a frame: the poses and statuses; each frame's outputs
+        (``frame_outputs``) appended to ``fields`` when given."""
         Ts, sts = [], []
         for i in ids:
             state = vo.step(state, fr[i],
                             generator=runner.frame_generator(0, i, vo.device))
             Ts.append(state.T_CW.cpu().numpy())
             sts.append(int(state.status))
+            if fields is not None:
+                fields.append([o.cpu().numpy()
+                               for o in frame_outputs(state)])
         return Ts, sts
 
     state0 = start(u8)
+    graphs = vo.graphs
+    replays = ReplaysByKey(graphs)
+    counted = CountingStep(vo)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     k2.klt_lk.launches = 0
     v1.klt_v1.launches = 0
     t0 = time.perf_counter()
@@ -940,7 +964,11 @@ def phase_stream(scene, frames, vo):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(klt_lk=k2.klt_lk.launches, klt_v1=v1.klt_v1.launches)
-    loop_T, loop_status = loop(state0, u8)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    vo.step, vo.step_chunk = counted.inner, counted.inner_chunk
+    chunk_replays = dict(replays.counts)
+    loop_outs = []
+    loop_T, loop_status = loop(state0, u8, loop_outs)
 
     est = positions_of([state0.T_CW.cpu().numpy()] + list(outs.T_CW))
     res = trajectory_health(scene, [b] + fids,
@@ -967,16 +995,37 @@ def phase_stream(scene, frames, vo):
                                  [int(s0.status)] + list(sts))
 
     # The block driver's host dispatches and device events per frame over
-    # one block of PROFILE_STEPS frames (its upload and read-back included).
-    prof_ids = ids[:PROFILE_STEPS]
+    # one block of PROFILE_STEPS frames (its upload and read-back included):
+    # the second PROFILE_STEPS frames, from the step loop's state before
+    # them, one chunk with its BA frame (the first PROFILE_STEPS hold none,
+    # the ring not yet full, and are stepped one by one).
+    prof_state = state0
+    for i in ids[:PROFILE_STEPS]:
+        prof_state = vo.step(
+            prof_state, u8[i],
+            generator=runner.frame_generator(0, i, vo.device))
+    prof_ids = ids[PROFILE_STEPS:2 * PROFILE_STEPS]
+    if not any(vo.ba_flags(prof_state, len(prof_ids))):
+        raise RuntimeError("the profiled block holds no BA frame")
     res["profile"] = profile_steps(
         lambda: scan_driver.run_streaming(
-            vo, state0, ((i, u8[i]) for i in prof_ids), 0,
+            vo, prof_state, ((i, u8[i]) for i in prof_ids), 0,
             block=len(prof_ids)), len(prof_ids), DEVICE)
     if res["profile"]["klt_lk_per_step"] != 3:
         raise RuntimeError(f"the profiled block ran klt_lk_kernel "
                            f"{res['profile']['klt_lk_per_step']} times a "
                            f"frame, expected 3: {res['profile']}")
+    graphs.replay = replays.inner
+
+    def step_loop():
+        state = prof_state
+        for i in prof_ids:
+            state = vo.step(state, u8[i],
+                            generator=runner.frame_generator(0, i, vo.device))
+
+    bg = block_graph(vo, graphs, counted, chunk_replays, peak_mb, outs,
+                     loop_outs, res, profile_steps(step_loop, len(prof_ids),
+                                                   DEVICE))
     four = dict(block_uint8=res, loop_uint8=ate(state0, loop_T, loop_status),
                 block_float32=ate(state0f, outs_f.T_CW, outs_f.status),
                 loop_float32=ate(state0f, loop_Tf, loop_status_f))
@@ -991,7 +1040,65 @@ def phase_stream(scene, frames, vo):
         raise RuntimeError(f"stream path differs from the step loop: {res}")
     if not healthy(res):
         raise RuntimeError(f"stream path unhealthy: {res}")
+    res["block_graph"] = bg
     return res
+
+
+class ReplaysByKey:
+    """Wraps a graph cache's ``replay`` to count the replays of each key."""
+
+    def __init__(self, cache):
+        self.inner = cache.replay
+        self.counts = {}
+        cache.replay = self
+
+    def __call__(self, key):
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return self.inner(key)
+
+
+def block_graph(vo, graphs, counted, replays, peak_mb, outs, loop_outs, res,
+                loop_profile):
+    """The ``block_graph`` line of phase 4: how the block driver ran its
+    frames (chunk replays, frames replayed one by one), the chunk graphs
+    (keys: segments, host-wait calls, capture seconds, replays), peak
+    device memory of the stream with its captures, the largest position
+    difference from the step loop, whether every output field of every
+    frame is bit for bit the loop's (``loop_outs``: its ``frame_outputs``
+    a frame) and which fields differ, and the host dispatches and device
+    ms a frame of the profiled block against a loop of ``step`` over the
+    same frames (``loop_profile``).  Gates: chunk replays on the path,
+    every frame stepped once, and at most 2 host dispatches a frame."""
+    chunks = {k: v for k, v in graphs.graphs.items() if k[0] == "chunk"}
+    keys = {"/".join(str(x) for x in k[1:]): dict(
+        segments=sum(1 for st in steps if not isinstance(st, tuple)),
+        host_waits=sum(1 for st in steps if isinstance(st, tuple)),
+        capture_s=graphs.capture_s[k], replays=replays.get(k, 0))
+        for k, (steps, _) in chunks.items()}
+    differ = [f for k, f in enumerate(outs._fields[:len(loop_outs[0])])
+              if not np.array_equal(getattr(outs, f),
+                                    np.stack([o[k] for o in loop_outs]))]
+    bg = dict(
+        chunk_frames=vo.chunk_frames, frames=counted.calls,
+        chunk_replays=counted.chunks, frames_alone=counted.alone,
+        keys=keys, captures=len(chunks),
+        capture_s=sum(v["capture_s"] for v in keys.values()),
+        peak_device_mb=peak_mb, loop_pos_diff=res["loop_pos_diff"],
+        bit_equal_to_step_loop=not differ, fields_differing=differ,
+        dispatches_per_frame=dict(
+            block=res["profile"]["dispatches_per_step"],
+            step_loop=loop_profile["dispatches_per_step"]),
+        device_ms_per_frame=dict(
+            block=res["profile"]["device_ms_per_step"],
+            step_loop=loop_profile["device_ms_per_step"]))
+    print("block_graph " + json.dumps(bg), flush=True)
+    if not counted.chunks or counted.calls != len(loop_outs):
+        raise RuntimeError(f"the block driver ran no chunk, or other frames: "
+                           f"{bg}")
+    if bg["dispatches_per_frame"]["block"] > 2:
+        raise RuntimeError(f"the chunked block took more than 2 host "
+                           f"dispatches a frame: {bg}")
+    return bg
 
 
 def kernel_launches():
@@ -1034,20 +1141,30 @@ class CountingBootstrap:
 
 
 class CountingStep:
-    """Wraps ``vo.step`` to count the steps run (``first``: the host clock at
-    the first)."""
+    """Wraps ``vo.step`` and ``vo.step_chunk`` to count the frames stepped
+    (``calls``: a frame a ``step``, K a chunk), the chunks among them
+    (``chunks``) and the frames stepped alone (``alone``); ``first``: the
+    host clock at the first."""
 
     def __init__(self, vo):
-        self.inner = vo.step
-        self.calls = 0
+        self.inner, self.inner_chunk = vo.step, vo.step_chunk
+        self.calls = self.chunks = self.alone = 0
         self.first = None
-        vo.step = self
+        vo.step, vo.step_chunk = self, self.chunk
 
     def __call__(self, state, image, generator=None, **kw):
         if self.first is None:
             self.first = time.perf_counter()
         self.calls += 1
+        self.alone += 1
         return self.inner(state, image, generator=generator, **kw)
+
+    def chunk(self, state, images, draws, **kw):
+        if self.first is None:
+            self.first = time.perf_counter()
+        self.calls += images.shape[0]
+        self.chunks += 1
+        return self.inner_chunk(state, images, draws, **kw)
 
 
 class CountingBatch:
@@ -2415,6 +2532,8 @@ def main():
                      main_res["launches_per_step"],
                      res["bootstrap_graph"]["klt_lk_per_hop"], {
                          "main_path": main_res["launches"],
+                         "stream_path": res["stream_path"]["launches"][
+                             "klt_lk"],
                          f"presets_{PRESET}": res["presets"]["path"][
                              "launches"],
                          **{k: v["launches"] for k, v in lock.items()}},

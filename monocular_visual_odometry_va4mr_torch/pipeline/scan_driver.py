@@ -2,20 +2,26 @@
 
 The reference compiles the step once and iterates it on the device with
 ``lax.scan``.  The port's counterpart: ``make_scan_step`` returns a callable
-that replays the captured step (``VisualOdometry.step``, a CUDA graph on
-the card) once per active frame of a block.  The host issues one graph
-launch and a few copies per frame (the draws, the image, the state and
-the frame's outputs) and reads nothing back inside the block: the activity
-mask and the BA cadence are host data.  A masked frame is not stepped; its
-outputs repeat the previous frame's.  Each frame's outputs (``frame_outputs``,
-with the landmark snapshot where ``emit_landmarks`` asks for it) are written
-by the graph into one preallocated device buffer for the block and come
-back to the host once per block.  On the CPU
-the same loop runs the step eagerly.
+that runs a block's active frames in chunks of K (``vo.chunk_frames``:
+``ba.every``, or ``vo.CHUNK`` with the in-step BA off), each chunk one
+call of ``VisualOdometry.step_chunk`` (on the card one replay of the
+chunk's CUDA graph, keyed by the BA frames among its K), and the frames
+that fill no chunk (a block's tail, a short block, the frames before the
+ring fills) one ``step`` each.  The host plans the chunks (``plan_chunks``: the activity mask and the BA cadence are host
+data), draws every frame's RANSAC bank before the block runs, copies a
+chunk's images and draws in with one copy each and its outputs out with
+one, and reads nothing back inside the block.  A masked frame is not
+stepped; its outputs repeat the previous frame's.  Each frame's outputs
+(``frame_outputs``, with the landmark snapshot where ``emit_landmarks`` asks
+for it) are written into one preallocated device buffer for the block and
+come back to the host once per block.  On the CPU the same chunks run
+their body eagerly.
 
 ``run_streaming`` is the long-sequence path:
-  * fixed-size blocks, the padded tail masked (inactive steps are identity),
-    so the returned state is exactly the state after the last real frame;
+  * fixed-size blocks (their frames in pinned host memory on the card, each
+    chunk's copied to the device on the way in), the padded tail masked
+    (inactive steps are identity), so the returned state is exactly the
+    state after the last real frame;
   * re-bootstrap recovery from tracking loss, re-running the rest of the
     block with the recovered state;
   * optional per-frame landmark snapshots (``emit_landmarks``), which feed
@@ -24,7 +30,8 @@ the same loop runs the step eagerly.
 
 Random draws come from ``runner.frame_generator(seed, stream)``: frame
 ``idx`` from stream ``idx``, a re-bootstrap ending at frame ``idx`` from
-``10_000_000 + idx``, as in ``pipeline/runner.py``.
+``10_000_000 + idx``, as in ``pipeline/runner.py``; a block's banks are
+drawn when the block is stacked, before any of its frames runs.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import torch
 from ..core.state import STATUS_TRACKING, FrameState
 from .runner import (REBOOT_STREAM, frame_generator, map_scale_from_points,
                      median_step_len, reanchor_state)
-from .vo import VisualOdometry, frame_outputs
+from .vo import VisualOdometry, ba_trigger, frame_outputs
 
 
 class ScanOutputs(NamedTuple):
@@ -59,6 +66,80 @@ class ScanOutputsLm(NamedTuple):
     lm_valid: torch.Tensor  # (F, K) bool
 
 
+class Stretch(NamedTuple):
+    """One entry of a block's plan (``plan_chunks``): the frames from
+    ``start``, ``len(flags)`` of them, and whether each runs the in-step
+    BA; ``flags`` is None for an inactive frame.  ``chunk``: one call of
+    ``step_chunk``, else one ``step``."""
+
+    start: int
+    flags: Optional[tuple]
+    chunk: bool
+
+
+def plan_chunks(host_frame: int, active: Sequence[bool], K: int, every: int,
+                window: int) -> List[Stretch]:
+    """The plan of a block whose first frame follows the state at
+    ``host_frame``: each run of K active frames, from the block's start on,
+    one chunk; an active frame that fills no chunk one step; an inactive
+    frame a stretch of its own.  The BA flags follow the cadence frame by
+    frame (``ba_trigger``).  With the BA on, a run whose K frames hold no
+    BA frame (the ring not yet full) is stepped frame by frame: every chunk
+    then holds the one BA frame of its K, at the same place while the phase
+    holds, so a stream replays one chunk graph.  ``K == 0`` makes no
+    chunks."""
+    plan, i = [], 0
+    while i < len(active):
+        if not active[i]:
+            plan.append(Stretch(i, None, False))
+            i += 1
+            continue
+        chunk = bool(K) and i + K <= len(active) and all(active[i:i + K])
+        n = K if chunk else 1
+        flags = tuple(ba_trigger(host_frame + 1 + k, every, window)
+                      for k in range(n))
+        if chunk and (any(flags) or not every):
+            plan.append(Stretch(i, flags, True))
+        else:
+            plan.extend(Stretch(i + k, (f,), False)
+                        for k, f in enumerate(flags))
+        host_frame += n
+        i += n
+    return plan
+
+
+def frame_draws(vo: VisualOdometry, generators, active) -> list:
+    """Each active frame's RANSAC bank (``vo.step_draws``) in frame order,
+    None for an inactive one."""
+    return [vo.step_draws(g) if a else None
+            for g, a in zip(generators, active)]
+
+
+def _scan(vo: VisualOdometry, state: FrameState, images: torch.Tensor,
+          draws: Sequence, active: Sequence[bool], landmarks: bool):
+    """The block by its plan: (the state after its last active frame, the
+    (F, nbytes) device buffer of its frames' packed outputs)."""
+    packing = vo.outputs[landmarks]
+    K = vo.chunk_frames
+    rows = torch.empty((images.shape[0], packing.nbytes), dtype=torch.uint8,
+                       device=vo.device)
+    ba = vo.config.ba
+    for st in plan_chunks(state.host_frame_idx(), active, K, ba.every,
+                          ba.window):
+        i = st.start
+        if st.chunk:
+            state = vo.step_chunk(state, images[i:i + K], draws[i:i + K],
+                                  outputs=rows[i:i + K], landmarks=landmarks)
+        elif st.flags is not None:
+            state = vo.step(state, images[i], draws=draws[i],
+                            outputs=rows[i], landmarks=landmarks)
+        elif i:
+            rows[i].copy_(rows[i - 1])
+        else:
+            packing.pack(rows[0], frame_outputs(state, landmarks))
+    return state, rows
+
+
 def make_scan_step(vo: VisualOdometry, *, emit_landmarks: bool = False,
                    masked: bool = False):
     """Returns ``run(state, images (F, H, W), generators (F,)[, active
@@ -68,8 +149,9 @@ def make_scan_step(vo: VisualOdometry, *, emit_landmarks: bool = False,
     passes the state through unchanged (identity), so padded tail frames
     are no-ops and the returned state is the one after the last ACTIVE
     frame.  ``emit_landmarks``: the outputs carry the per-frame landmark
-    snapshot (``ScanOutputsLm``).  The outputs are views of the block's
-    device buffer."""
+    snapshot (``ScanOutputsLm``).  Each active frame's generator draws its
+    bank, in frame order, before the first step.  The outputs are views of
+    the block's device buffer."""
     out_t = ScanOutputsLm if emit_landmarks else ScanOutputs
     packing = vo.outputs[emit_landmarks]
 
@@ -78,17 +160,9 @@ def make_scan_step(vo: VisualOdometry, *, emit_landmarks: bool = False,
             active: Optional[Sequence[bool]] = None):
         if masked == (active is None):
             raise ValueError("pass `active` exactly when masked=True")
-        F = images.shape[0]
-        rows = torch.empty((F, packing.nbytes), dtype=torch.uint8,
-                           device=vo.device)
-        for i in range(F):
-            if not masked or active[i]:
-                state = vo.step(state, images[i], generator=generators[i],
-                                outputs=rows[i], landmarks=emit_landmarks)
-            elif i:
-                rows[i].copy_(rows[i - 1])
-            else:
-                packing.pack(rows[0], frame_outputs(state, emit_landmarks))
+        active = [True] * images.shape[0] if active is None else active
+        draws = frame_draws(vo, generators, active)
+        state, rows = _scan(vo, state, images, draws, active, emit_landmarks)
         return state, out_t(*packing.views(rows))
 
     return run
@@ -130,8 +204,8 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
     Returns (final_state, outputs over all frames as numpy, frame_ids,
     StreamInfo)."""
     dev = vo.device
-    run = make_scan_step(vo, emit_landmarks=emit_landmarks, masked=True)
     out_t = ScanOutputsLm if emit_landmarks else ScanOutputs
+    packing = vo.outputs[emit_landmarks]
     it = iter(frames)
     pending = []  # (idx, img) pushed back by recovery re-runs
     upload_dtype: List[np.dtype] = []
@@ -162,10 +236,19 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
             return None
         n = len(imgs)
         pad = block - n
-        stacked = torch.from_numpy(np.stack(imgs + [imgs[-1]] * pad)).to(dev)
+        full = imgs + [imgs[-1]] * pad
+        if dev.type == "cuda":
+            # Pinned: each chunk's frames go up asynchronously.
+            stacked = torch.empty((block,) + full[0].shape,
+                                  dtype=torch.from_numpy(full[0]).dtype,
+                                  pin_memory=True)
+            np.stack(full, out=stacked.numpy())
+        else:
+            stacked = torch.from_numpy(np.stack(full))
         active = [True] * n + [False] * pad
         gens = [frame_generator(seed, i, dev) for i in ids] + [None] * pad
-        return ids, imgs, (stacked, gens, active), n
+        return ids, imgs, (stacked, frame_draws(vo, gens, active),
+                           active), n
 
     def old_map_points(j):
         """World-frame landmark map of the last TRACKING frame before block
@@ -256,12 +339,12 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
     blocks = 0
     nxt = next_block()
     while nxt is not None:
-        ids, imgs, dev_in, n = nxt
-        new_state, outs = run(state, *dev_in)
-        # Stack and upload the next block while the device works (not on
-        # the recovery path: the block may need a re-run).
+        ids, imgs, block_in, n = nxt
+        new_state, rows = _scan(vo, state, *block_in, emit_landmarks)
+        # Stack the next block and draw its banks while the device works
+        # (not on the recovery path: the block may need a re-run).
         nxt_pref = next_block() if not recover else None
-        outs_np = out_t(*(o.cpu().numpy() for o in outs))
+        outs_np = out_t(*(v.numpy() for v in packing.views(rows.cpu())))
         statuses = outs_np.status
 
         keep = n

@@ -19,6 +19,13 @@ the launches of the kernels it holds are added to their wrappers' counts.
 A capture or replay that fails raises: nothing falls back to eager
 stepping.  On the CPU ``step`` runs ``_step_impl``.
 
+Several frames, as in the reference's ``lax.scan`` over a block
+(``pipeline/scan_driver.py``): ``step_chunk(state, images, draws)`` runs K
+consecutive steps as one body (``_chunk_impl``), replayed on a CUDA device
+from one graph per pattern of in-step BA frames among the K (and per upload
+dtype, tracker and outputs), over the step's state buffer; on the CPU it
+runs the same body.  Each frame's RANSAC bank is drawn before the call.
+
 The reference's other compiled functions are graphs too on a CUDA device
 (``graphed``, over a ``GraphCache`` of the VO's: one graph per key and
 input shapes, captured at first use): the bootstrap's pieces (the first
@@ -106,6 +113,17 @@ from ..ops import (corners, essential, image as imops, klt, klt_pallas,
                    klt_pallas2, match, pnp, ransac, sift, triangulate)
 
 Sampler = Callable[[torch.Generator, torch.Tensor, int, int], tuple]
+
+# Frames of a chunk (``step_chunk``) when the in-step BA is off; with it on, a
+# chunk is ``ba.every`` frames, so each chunk after the ring fills holds one
+# BA frame at the same place and replays one graph.
+CHUNK = 8
+
+
+def ba_trigger(new_frame: int, every: int, window: int) -> bool:
+    """Whether the step that makes frame ``new_frame`` runs the in-step
+    BA: a full ring and the trigger cadence."""
+    return bool(every) and new_frame >= window and new_frame % every == 0
 
 
 def _num_klt_levels(config: PipelineConfig) -> int:
@@ -465,15 +483,17 @@ class VisualOdometry:
     def step(self, state: FrameState, image,
              generator: Optional[torch.Generator] = None, *,
              outputs: Optional[torch.Tensor] = None,
-             landmarks: bool = False) -> FrameState:
+             landmarks: bool = False, draws=None) -> FrameState:
         """One frame of continuous operation: a replay of the captured step
         on a CUDA device, ``_step_impl`` on the CPU.  ``generator`` draws the
-        RANSAC bank (one seeded from ``seed`` if None).  ``outputs``: a
-        uint8 tensor of ``self.outputs[landmarks].nbytes`` bytes on the
-        device, which gets the new state's ``frame_outputs`` packed, with
-        the landmark snapshot if ``landmarks``."""
+        RANSAC bank (one seeded from ``seed`` if None), unless ``draws``
+        gives the bank ``step_draws`` drew before.  ``outputs``: a uint8
+        tensor of ``self.outputs[landmarks].nbytes`` bytes on the device,
+        which gets the new state's ``frame_outputs`` packed, with the
+        landmark snapshot if ``landmarks``."""
         run_ba = self.ba_due(state)
-        draws = self.step_draws(generator)
+        if draws is None:
+            draws = self.step_draws(generator)
         if self.device.type == "cuda":
             if self.graphs is None:
                 self.graphs = StepGraphs(self)
@@ -532,14 +552,60 @@ class VisualOdometry:
             self.ba_runs += 1
         return new
 
+    def step_chunk(self, state: FrameState, images, draws, *,
+                   outputs: Optional[torch.Tensor] = None,
+                   landmarks: bool = False) -> FrameState:
+        """K consecutive frames in one call: a replay of the captured chunk
+        (``StepGraphs.chunk``) on a CUDA device, ``_chunk_impl`` on the
+        CPU; the state after the K frames, as K calls of ``step`` would
+        leave it.
+
+        ``images``: (K, H, W).  ``draws``: the K frames' banks from
+        ``step_draws`` in frame order (a sequence of K tensors, or one (K,
+        iterations, 3) tensor).  ``outputs``: a uint8 tensor (K,
+        ``self.outputs[landmarks].nbytes``) on the device, row k of which
+        gets frame k's ``frame_outputs``.  The BA frames among the K follow
+        from ``state.host_frame`` (``ba_flags``)."""
+        if self._draw is None:
+            raise TypeError("a chunk takes its RANSAC draws as tensors: a "
+                            "sampler without draw() runs only through step")
+        K = images.shape[0]
+        if len(draws) != K:
+            raise ValueError(f"{K} images with {len(draws)} draws")
+        flags = self.ba_flags(state, K)
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                self.graphs = StepGraphs(self)
+            new = self.graphs.chunk(state, images, draws, flags, outputs,
+                                    landmarks)
+        else:
+            new = self._chunk_impl(state, images, draws, flags, outputs,
+                                   landmarks)
+        new.host_frame = state.host_frame_idx() + K
+        self.ba_runs += sum(flags)
+        return new
+
+    @property
+    def chunk_frames(self) -> int:
+        """K, the frames of a chunk (``step_chunk``): ``ba.every``, or
+        ``CHUNK`` with the in-step BA off; 0 for a sampler without
+        ``draw``, whose banks cannot be drawn before the step."""
+        if self._draw is None:
+            return 0
+        return self.config.ba.every or CHUNK
+
+    def ba_flags(self, state: FrameState, n: int = 1) -> tuple:
+        """For each of the ``n`` steps after ``state``, whether it runs the
+        in-step BA (``ba_trigger``), decided from ``state.host_frame``."""
+        ba = self.config.ba
+        first = state.host_frame_idx() + 1
+        return tuple(ba_trigger(f, ba.every, ba.window)
+                     for f in range(first, first + n))
+
     def ba_due(self, state: FrameState) -> bool:
         """Whether the step after ``state`` runs the in-step BA: a full ring
         and the trigger cadence, decided from ``state.host_frame``."""
-        ba = self.config.ba
-        if not ba.every:
-            return False
-        new_frame = state.host_frame_idx() + 1
-        return new_frame >= ba.window and new_frame % ba.every == 0
+        return self.ba_flags(state)[0]
 
     def step_draws(self, generator: Optional[torch.Generator] = None):
         """The step's RANSAC draws from ``generator`` (the VO's own if
@@ -730,6 +796,20 @@ class VisualOdometry:
             n_tracked=tracked[:K].sum().to(torch.int32),
         )
 
+    def _chunk_impl(self, state: FrameState, images, draws, flags,
+                    outputs: Optional[torch.Tensor] = None,
+                    landmarks: bool = False) -> FrameState:
+        """The chunk's body: ``_step_impl`` once a frame over ``images[k]``,
+        ``draws[k]`` and ``flags[k]``, each frame's ``frame_outputs`` packed
+        into ``outputs[k]`` when given; returns the last state.  Nothing in
+        it reads a device value on the host."""
+        for k, run_ba in enumerate(flags):
+            state = self._step_impl(state, images[k], draws[k], run_ba)
+            if outputs is not None:
+                self.outputs[landmarks].pack(outputs[k],
+                                             frame_outputs(state, landmarks))
+        return state
+
     def _step_batch_impl(self, states: FrameState, images: torch.Tensor,
                          draws: torch.Tensor, run_ba: bool) -> FrameState:
         """The batched step's body: ``torch.func.vmap`` of ``_step_impl``
@@ -824,45 +904,110 @@ def batch_frame_outputs(states: FrameState, landmarks: bool = False):
         states.tensors())
 
 
-class _Buffers:
-    """The static buffers of one batch size: the state (one packed row, or
-    S rows), the image per upload dtype, the draws and the outputs."""
+class _Inputs:
+    """The static inputs and outputs of one leading shape (none for a
+    frame, (S,) for a batch of S, (K,) for a chunk of K frames): the image
+    per upload dtype, the RANSAC draws, and the outputs without and with
+    the landmark snapshot."""
 
-    def __init__(self, lead: tuple, packing: Packing, like: FrameState,
-                 vo: "VisualOdometry"):
-        dev = vo.device
-        self.state = torch.empty(lead + (packing.nbytes,), dtype=torch.uint8,
-                                 device=dev)
-        self.static = like.with_tensors(packing.views(self.state))
+    def __init__(self, lead: tuple, vo: "VisualOdometry"):
+        self.device = vo.device
         self.images: Dict[torch.dtype, torch.Tensor] = {}
         self.draws = None
         self.outputs = {lm: torch.empty(lead + (p.nbytes,),
-                                        dtype=torch.uint8, device=dev)
+                                        dtype=torch.uint8, device=vo.device)
                         for lm, p in vo.outputs.items()}
+
+    def load(self, image, draws) -> torch.Tensor:
+        """Copy ``image`` and ``draws`` (a tensor, or a sequence of tensors
+        stacked on the leading axis) into their buffers, each with one copy
+        (the image's asynchronous from pinned host memory); returns the
+        image buffer of the image's upload dtype (uint8, or float32)."""
+        img = torch.as_tensor(image)
+        dtype = torch.uint8 if img.dtype == torch.uint8 else torch.float32
+        if dtype not in self.images:
+            self.images[dtype] = torch.empty(tuple(img.shape), dtype=dtype,
+                                             device=self.device)
+        img_buf = self.images[dtype]
+        if img.shape != img_buf.shape:
+            raise ValueError(f"image of shape {tuple(img.shape)}; the step "
+                             f"was captured at {tuple(img_buf.shape)}")
+        img_buf.copy_(img, non_blocking=True)
+        if torch.is_tensor(draws):
+            shape, dt = tuple(draws.shape), draws.dtype
+        elif (isinstance(draws, (list, tuple)) and draws
+              and all(torch.is_tensor(d) for d in draws)):
+            shape, dt = (len(draws),) + tuple(draws[0].shape), draws[0].dtype
+        else:
+            raise TypeError("the captured step takes its RANSAC draws as "
+                            "tensors: a sampler without draw() runs only "
+                            "through _step_impl")
+        if self.draws is None:
+            self.draws = torch.empty(shape, dtype=dt, device=self.device)
+        if shape != tuple(self.draws.shape) or dt != self.draws.dtype:
+            raise ValueError(f"draws {dt} {shape}; the step was captured "
+                             f"with {self.draws.dtype} "
+                             f"{tuple(self.draws.shape)}")
+        if torch.is_tensor(draws):
+            self.draws.copy_(draws)
+        elif all(d.device == self.draws.device for d in draws):
+            torch.stack(draws, out=self.draws)
+        else:
+            self.draws.copy_(torch.stack(draws))
+        return img_buf
+
+
+class _Buffers:
+    """The static buffers of one batch size: the state (one packed row, or
+    S rows), which the state's graphs read and write over, and the inputs
+    of each leading shape that reads it (``_Inputs``).  ``resident``: the
+    snapshot whose state the state buffer holds (the last replay's, or the
+    one last copied in) with its version then, or None."""
+
+    def __init__(self, lead: tuple, packing: Packing, like: FrameState,
+                 vo: "VisualOdometry"):
+        self.vo = vo
+        self.state = torch.empty(lead + (packing.nbytes,), dtype=torch.uint8,
+                                 device=vo.device)
+        self.static = like.with_tensors(packing.views(self.state))
+        self.inputs: Dict[tuple, _Inputs] = {}
+        self.resident = None
+
+    def io(self, lead: tuple) -> _Inputs:
+        if lead not in self.inputs:
+            self.inputs[lead] = _Inputs(lead, self.vo)
+        return self.inputs[lead]
 
 
 class StepGraphs(GraphCache):
     """``VisualOdometry._step_impl`` captured as CUDA graphs over static
     buffers: the counterpart of the reference's ``jax.jit(_step_impl)``,
-    and of ``jax.jit(jax.vmap(_step_impl))`` for a batch.
+    of ``jax.jit(jax.vmap(_step_impl))`` for a batch, and of its
+    ``lax.scan`` over a block for a chunk of K frames (``_chunk_impl``).
 
     The buffers, per batch size (none for one sequence, S for the batched
     step ``_step_batch_impl``): the state (every tensor of a ``FrameState``
-    packed in one uint8 row, ``Packing``, or S rows), one image buffer per
-    upload dtype (uint8, float32), the RANSAC draws, and the frame's outputs
-    (``frame_outputs``, packed as ``vo.outputs``) for callers that ask for
-    them.  A graph reads the state, the image and the draws and writes the
-    next state back over the state buffer (and the outputs into theirs).
-    One graph per (upload dtype, in-step BA or not, tracker, outputs: none,
-    without or with the landmark snapshot, batch size), captured at first
-    use (``GraphCache.capture``, its warm-up one run of the body), all in
-    one memory pool.  A batched graph holds as many launches as the solo
-    one: each kernel call of the body takes every sequence.
+    packed in one uint8 row, ``Packing``, or S rows), and per leading shape
+    of the inputs (``_Inputs``: a frame, a batch, a chunk of K) one image
+    buffer per upload dtype (uint8, float32), the RANSAC draws, and the
+    frames' outputs (``frame_outputs``, packed as ``vo.outputs``) for
+    callers that ask for them.  A graph reads the state, the images and the
+    draws and writes the next state back over the state buffer (and the
+    outputs into theirs), so a frame's and a chunk's graphs chain.  One
+    graph per (upload dtype, in-step BA or not, tracker, outputs: none,
+    without or with the landmark snapshot, batch size), and one a chunk per
+    (upload dtype, in-step BA flags of its K frames, tracker, outputs),
+    captured at first use (``GraphCache.capture``, its warm-up one run of
+    the body, or for a chunk one step of each kind it holds), all in one
+    memory pool.  A batched graph holds as many
+    launches as the solo one: each kernel call of the body takes every
+    sequence.
 
-    ``step`` copies the state in (one copy for a state a replay returned, a
-    copy per tensor otherwise), replays, and returns the new state as views
-    of one copy of the state buffer, so a later replay leaves it as it is.
-    Every failure raises."""
+    ``step`` and ``chunk`` copy the state in (nothing for the state the
+    last replay returned, still in the buffer and unwritten since; one copy
+    for another replay's; a copy per tensor otherwise), replay, and return
+    the new state as views of one copy of the state buffer, so a later
+    replay leaves it as it is.  Every failure raises."""
 
     def __init__(self, vo: "VisualOdometry"):
         super().__init__(vo.device)
@@ -876,41 +1021,64 @@ class StepGraphs(GraphCache):
         """Replay the step for one state, or for ``batch`` stacked states
         (``image`` (S, H, W), ``draws`` (S, iterations, 3))."""
         vo = self.vo
-        dev = vo.device
         b = self._load_state(state, batch)
-        img = torch.as_tensor(image)
-        dtype = torch.uint8 if img.dtype == torch.uint8 else torch.float32
-        if dtype not in b.images:
-            b.images[dtype] = torch.empty(tuple(img.shape), dtype=dtype,
-                                          device=dev)
-        img_buf = b.images[dtype]
-        if img.shape != img_buf.shape:
-            raise ValueError(f"image of shape {tuple(img.shape)}; the step "
-                             f"was captured at {tuple(img_buf.shape)}")
-        img_buf.copy_(img)
-        if not torch.is_tensor(draws):
-            raise TypeError("the captured step takes its RANSAC draws as a "
-                            "tensor: a sampler without draw() runs only "
-                            "through _step_impl")
-        if b.draws is None:
-            b.draws = torch.empty(tuple(draws.shape), dtype=draws.dtype,
-                                  device=dev)
-        if draws.shape != b.draws.shape or draws.dtype != b.draws.dtype:
-            raise ValueError(f"draws {draws.dtype} {tuple(draws.shape)}; the "
-                             f"step was captured with {b.draws.dtype} "
-                             f"{tuple(b.draws.shape)}")
-        b.draws.copy_(draws)
-
+        io = b.io(() if batch is None else (batch,))
+        img_buf = io.load(image, draws)
         out = None if outputs is None else landmarks
-        key = (dtype, run_ba, vo.klt_backend, out, batch)
+        key = (img_buf.dtype, run_ba, vo.klt_backend, out, batch)
         if key not in self.graphs:
-            self._capture(key, b, img_buf, run_ba, out, batch)
+            body, outs_of = ((vo._step_impl, frame_outputs) if batch is None
+                             else (vo._step_batch_impl, batch_frame_outputs))
+
+            def run():
+                new = body(b.static, img_buf, io.draws, run_ba)
+                if out is not None:
+                    vo.outputs[out].pack(io.outputs[out], outs_of(new, out))
+                return new
+
+            self._capture(key, b, run, lambda: body(b.static, img_buf,
+                                                    io.draws, run_ba))
+        return self._replayed(key, b, io, outputs, landmarks)
+
+    def chunk(self, state: FrameState, images, draws, flags: tuple,
+              outputs: Optional[torch.Tensor],
+              landmarks: bool) -> FrameState:
+        """Replay ``len(flags)`` steps from one state (``images`` (K, H, W),
+        ``draws`` K banks, ``flags`` the BA frames, ``outputs`` (K, nbytes)
+        or None)."""
+        vo = self.vo
+        b = self._load_state(state, None)
+        io = b.io((len(flags),))
+        img_buf = io.load(images, draws)
+        out = None if outputs is None else landmarks
+        key = ("chunk", img_buf.dtype, flags, vo.klt_backend, out)
+        if key not in self.graphs:
+
+            def warm_up():
+                # A step of each kind the chunk holds runs every op of its
+                # body; K of them would only repeat those.
+                for run_ba in set(flags):
+                    k = flags.index(run_ba)
+                    vo._step_impl(b.static, img_buf[k], io.draws[k], run_ba)
+
+            self._capture(
+                key, b,
+                lambda: vo._chunk_impl(
+                    b.static, img_buf, io.draws, flags,
+                    None if out is None else io.outputs[out], bool(out)),
+                warm_up)
+        return self._replayed(key, b, io, outputs, landmarks)
+
+    def _replayed(self, key, b: _Buffers, io: _Inputs,
+                  outputs: Optional[torch.Tensor],
+                  landmarks: bool) -> FrameState:
         self.replay(key)
         snap = b.state.clone()
+        b.resident = (snap, snap._version)
+        if outputs is not None:
+            outputs.copy_(io.outputs[landmarks])
         new = b.static.with_tensors(self.packing.views(snap))
         new._step_buf = (self.packing.specs, snap)
-        if outputs is not None:
-            outputs.copy_(b.outputs[landmarks])
         return new
 
     def _load_state(self, state: FrameState,
@@ -924,29 +1092,30 @@ class StepGraphs(GraphCache):
                                         self.packing, state, self.vo)
         b = self.bufs[batch]
         specs, buf = getattr(state, "_step_buf", (None, None))
-        if (specs == self.packing.specs and buf.shape == b.state.shape
-                and buf.device == b.state.device):
-            b.state.copy_(buf)
-        else:
+        if (specs != self.packing.specs or buf.shape != b.state.shape
+                or buf.device != b.state.device):
             self.packing.pack(b.state, tensors)
+            b.resident = None
+        # The snapshot's views share its version counter, which a write
+        # through any of them moves on.
+        elif (b.resident is None or b.resident[0] is not buf
+              or b.resident[1] != buf._version):
+            b.state.copy_(buf)
+            b.resident = (buf, buf._version)
         return b
 
-    def _capture(self, key, b: _Buffers, img_buf: torch.Tensor, run_ba: bool,
-                 out: Optional[bool], batch: Optional[int]) -> None:
-        vo = self.vo
-        body, outs_of = ((vo._step_impl, frame_outputs) if batch is None
-                         else (vo._step_batch_impl, batch_frame_outputs))
+    def _capture(self, key, b: _Buffers, run: Callable[[], FrameState],
+                 warm_up: Callable[[], object]) -> None:
+        """Capture ``run()``, a body over ``b``'s buffers, with the new
+        state it returns written over the state buffer."""
 
         def record():
-            new = body(b.static, img_buf, b.draws, run_ba)
+            new = run()
             # Through a scratch buffer: the new state may share tensors with
             # the one it was made from.
             scratch = torch.empty_like(b.state)
             self.packing.pack(scratch, new.tensors())
-            if out is not None:
-                vo.outputs[out].pack(b.outputs[out], outs_of(new, out))
             b.state.copy_(scratch)
 
         # Warm-up: its result is dropped, the buffers keep the input.
-        self.capture(key, record,
-                     lambda: body(b.static, img_buf, b.draws, run_ba))
+        self.capture(key, record, warm_up)

@@ -23,7 +23,9 @@ field is ``null``.
 
 The line has the JAX result's keys, unrounded, plus ``klt_lk``'s launches
 against 3 per step and bootstrap hop (the run raises when they differ),
-the steps and hops run, the checkpoints written, the process's peak RSS,
+the steps and hops run, the chunks among the steps and the step's graphs
+captured with their seconds (``step_graphs``), the checkpoints written,
+the process's peak RSS,
 the card's ``nvidia-smi`` name and power limit, where the error grows
 (``drift_windows``: per 256 streamed frames the globally aligned error,
 raw and refined, and the stretch's own ATE against 2% of its path), and
@@ -131,7 +133,7 @@ def stream_sequence(vo, spec, *, bootstrap=8, block=64, posegraph_every=0,
                 kf_images=kf_images, bootstrap_status=int(state0.status),
                 bootstrap_ms=1e3 * (t1 - t0),
                 wall_s=t2 - t1, fps=len(ids) / (t2 - t1),
-                steps=counts.steps, hops=counts.hops,
+                steps=counts.steps, chunks=counts.chunks, hops=counts.hops,
                 bootstraps=counts.bootstraps, klt_lk_launches=launches,
                 klt_lk_launches_expected=expected)
 
@@ -313,7 +315,8 @@ def main(argv=None) -> int:
         "instep_ba": not args.no_instep_ba, "bootstrap": args.bootstrap,
         "posegraph_every": args.posegraph_every,
         "tracker": vo.klt_backend, "bootstrap_ms": run["bootstrap_ms"],
-        "blocks": info.blocks, "steps": run["steps"], "hops": run["hops"],
+        "blocks": info.blocks, "steps": run["steps"], "chunks": run["chunks"],
+        "step_graphs": harness.step_graphs(vo), "hops": run["hops"],
         "klt_lk_launches": run["klt_lk_launches"],
         "klt_lk_launches_expected": run["klt_lk_launches_expected"],
         "checkpoint_every_blocks": every,

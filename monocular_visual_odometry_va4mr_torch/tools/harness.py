@@ -131,23 +131,33 @@ def render_frames(scene, n):
 
 
 class CallCounts:
-    """While installed (``with``), counts ``vo``'s steps and its bootstraps'
-    KLT hops (``len(intermediate) + 1`` a KLT bootstrap, 0 a SIFT one),
-    so a caller can hold ``klt_lk``'s launches at 3 per step and hop."""
+    """While installed (``with``), counts ``vo``'s steps (a frame a
+    ``step``, K a ``step_chunk``; ``chunks`` counts the chunks) and its
+    bootstraps' KLT hops (``len(intermediate) + 1`` a KLT bootstrap, 0 a
+    SIFT one), so a caller can hold ``klt_lk``'s launches at 3 per step and
+    hop."""
+
+    _WRAPPED = ("step", "step_chunk", "bootstrap")
 
     def __init__(self, vo):
         self.vo, self.steps, self.hops, self.bootstraps = vo, 0, 0, 0
+        self.chunks = 0
 
     def __enter__(self):
         vo = self.vo
-        self._saved = {k: vo.__dict__[k] for k in ("step", "bootstrap")
+        self._saved = {k: vo.__dict__[k] for k in self._WRAPPED
                        if k in vo.__dict__}
-        step, boot = vo.step, vo.bootstrap
+        step, chunk, boot = vo.step, vo.step_chunk, vo.bootstrap
         sift = vo.config.bootstrap_method == "sift"
 
         def counted_step(state, image, generator=None, **kw):
             self.steps += 1
             return step(state, image, generator=generator, **kw)
+
+        def counted_chunk(state, images, draws, **kw):
+            self.steps += images.shape[0]
+            self.chunks += 1
+            return chunk(state, images, draws, **kw)
 
         def counted_bootstrap(img0, img1, intermediate=(), generator=None):
             self.bootstraps += 1
@@ -155,11 +165,12 @@ class CallCounts:
             return boot(img0, img1, intermediate=intermediate,
                         generator=generator)
 
-        vo.step, vo.bootstrap = counted_step, counted_bootstrap
+        vo.step, vo.step_chunk, vo.bootstrap = (counted_step, counted_chunk,
+                                                counted_bootstrap)
         return self
 
     def __exit__(self, *exc):
-        for k in ("step", "bootstrap"):
+        for k in self._WRAPPED:
             if k in self._saved:
                 setattr(self.vo, k, self._saved[k])
             else:
@@ -169,6 +180,19 @@ class CallCounts:
         """``klt_lk``'s launches these calls make: 3 per step and hop on
         the kernel path, none off it."""
         return 3 * (self.steps + self.hops) if launches_lk(self.vo) else 0
+
+
+def step_graphs(vo) -> dict:
+    """``vo``'s captured step graphs so far (``VisualOdometry.graphs``): how
+    many and their capture seconds, all and the chunks' alone (zeros where
+    nothing was captured, as on the CPU)."""
+    g = vo.graphs
+    keys = list(g.capture_s) if g is not None else []
+    chunks = [k for k in keys if k[0] == "chunk"]
+    return dict(graphs=len(keys),
+                capture_s=sum(g.capture_s[k] for k in keys),
+                chunk_graphs=len(chunks),
+                chunk_capture_s=sum(g.capture_s[k] for k in chunks))
 
 
 # --- process groups ----------------------------------------------------------

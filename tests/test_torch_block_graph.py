@@ -1,0 +1,510 @@
+"""The block driver in chunks, on the CPU: what lets ``make_scan_step`` run
+a block's active frames K at a time (``VisualOdometry.step_chunk``, on the
+card one replay of a chunk's CUDA graph, the counterpart of the
+reference's ``lax.scan`` over a block).
+
+* The chunk's body (``_chunk_impl``) reads nothing on the host and makes no
+  tensor from host data (the host-read mode of
+  ``tests/test_torch_step_graph.py``, default device ``meta``), with and
+  without an in-step BA frame among its K, on the kernel and the gather
+  trackers.
+* ``plan_chunks``: a ring not yet full, the BA frame at each offset of a
+  chunk, a tail shorter than K, masked padding, a gap in the mask, the BA
+  off, no chunks for a sampler without ``draw``; after the ring fills, a
+  long block at one phase has one pattern (one graph on the card).
+* ``step_chunk`` is K calls of ``step``; ``make_scan_step`` (masked and
+  unmasked) and ``run_streaming`` (recovery on, landmark snapshots) over
+  blocks below, at and across K are bit for bit a loop of ``step`` with the
+  same generators, and run their full chunks through ``step_chunk``.
+* A recovery whose re-run starts inside a chunk gives, bit for bit, the
+  outputs of the driver that steps every frame alone (``per_frame_scan``,
+  the block driver as it ran before chunks).
+* The chunked ``run_streaming`` against the JAX ``run_streaming`` on the
+  same frames, with the in-step BA on in both (every 3 frames over a ring
+  of 3), blocks at and across K, recovery and landmark snapshots on; the
+  port takes the reference's RANSAC draws for each generator's stream
+  through a sampler with ``draw`` (``JaxStreamBank``), so its blocks run
+  in chunks.  Tolerances: ``tests/test_torch_drivers.py``'s
+  ``test_run_streaming_matches_reference`` (statuses, frames, block count
+  and recoveries equal; tracked counts equal and positions within 1e-3 of
+  the path, the blackout run through frame 15).
+
+Scenes and configs: ``tests/test_torch_step_graph.py``'s 96x160 textured
+scene and config (ring of 3, BA every 2: K = 2) for the body and
+``step_chunk``; ``tests/test_torch_streaming.py``'s 240x320 corridor with
+``tests/test_torch_drivers.py``'s config and the in-step BA every 3 frames
+over a ring of 3 (K = 3) for the drivers.  Tolerance: bit-equal
+everywhere (the same float32 operations in the same order), but against
+the JAX driver.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from monocular_visual_odometry_va4mr_tpu.core import config as jconfig
+from monocular_visual_odometry_va4mr_tpu.core.camera import Camera as JCamera
+from monocular_visual_odometry_va4mr_tpu.pipeline import scan_driver as jscan
+from monocular_visual_odometry_va4mr_tpu.pipeline.vo import (
+    VisualOdometry as JVO)
+from monocular_visual_odometry_va4mr_torch.core import config as tconfig
+from monocular_visual_odometry_va4mr_torch.core.camera import Camera
+from monocular_visual_odometry_va4mr_torch.core.config import (
+    kitti_tuned_config as t_kitti_tuned_config)
+from monocular_visual_odometry_va4mr_torch.ops import ransac
+from monocular_visual_odometry_va4mr_torch.pipeline import (runner,
+                                                            scan_driver)
+from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
+    CHUNK, VisualOdometry, ba_trigger, frame_outputs)
+from test_torch_batched import JaxTableBank
+from test_torch_drivers import BLACKOUT, SEED, STRIDE, JaxDraws, small_config
+from test_torch_step_graph import (STRIDE as TEX_STRIDE, NoHostReads,
+                                   at_frame, scene_frames)
+from test_torch_streaming import blackout_frames, frames, scene  # noqa: F401
+from test_torch_vo import small_config as tex_config
+
+torch.set_num_threads(1)
+
+K = 3  # the drivers' chunk: ba.every
+IDS = list(range(STRIDE + 1, 20))  # the corridor's frames after the bootstrap
+
+
+def gen(i):
+    return runner.frame_generator(SEED, i, "cpu")
+
+
+def ba_config(cfg_mod, image_shape=(240, 320)):
+    """The drivers' config, in either package, with the in-step BA every K
+    frames over a ring of K."""
+    cfg = small_config(cfg_mod, image_shape)
+    return cfg.replace(ba=dataclasses.replace(cfg.ba, every=K, window=K,
+                                              max_landmarks=64))
+
+
+def make_vo(scene, sampler=None):
+    """The streaming tests' VO with the in-step BA every K frames over a
+    ring of K."""
+    return VisualOdometry(Camera.from_matrix(scene.K),
+                          ba_config(tconfig, scene.image_shape), "cpu",
+                          sampler=sampler)
+
+
+def same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.tensors(), b.tensors()))
+
+
+# --- the chunk's body --------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tex():
+    """A VO per tracker on the 96x160 textured scene, its bootstrap state,
+    the two frames after it, and their draws."""
+    scene, fr = scene_frames(TEX_STRIDE + 3)
+    out = {}
+    for backend in ("pallas2", "xla"):
+        vo = VisualOdometry(Camera.from_matrix(scene.K),
+                            tex_config(t_kitti_tuned_config, backend), "cpu",
+                            seed=0)
+        state = vo.bootstrap(fr[0], fr[TEX_STRIDE],
+                             intermediate=fr[1:TEX_STRIDE])
+        imgs = torch.from_numpy(np.stack(fr[TEX_STRIDE + 1:TEX_STRIDE + 3]))
+        draws = [vo.step_draws(torch.Generator().manual_seed(i))
+                 for i in range(2)]
+        out[backend] = (vo, state, imgs, draws)
+    return out
+
+
+@pytest.mark.parametrize("trigger", [False, True], ids=["skip", "trigger"])
+@pytest.mark.parametrize("backend", ["pallas2", "xla"])
+def test_chunk_body_reads_nothing_on_the_host(tex, backend, trigger):
+    vo, state, imgs, draws = tex[backend]
+    assert vo.chunk_frames == 2
+    # Ring of 3, BA every 2: frames 2, 3 run none; frames 4, 5 run it at 4.
+    state = at_frame(state, 3 if trigger else 1)
+    flags = vo.ba_flags(state, 2)
+    assert flags == ((True, False) if trigger else (False, False))
+    packing = vo.outputs[True]
+    rows_e, rows_m = (torch.zeros((2, packing.nbytes), dtype=torch.uint8)
+                      for _ in range(2))
+    eager = vo._chunk_impl(state, imgs, draws, flags, rows_e, True)
+    torch.set_default_device("meta")
+    try:
+        with NoHostReads():
+            out = vo._chunk_impl(state, imgs, draws, flags, rows_m, True)
+    finally:
+        torch.set_default_device(None)
+    for a, b in zip(out.tensors(), eager.tensors()):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    assert torch.equal(rows_m, rows_e) and bool(rows_e.any())
+    assert int(out.frame_idx) == state.host_frame + 2
+
+
+def test_step_chunk_is_k_steps(tex):
+    """``step_chunk`` over K = 2 frames with a BA frame among them: the
+    state, each frame's outputs, the host's frame count and the BA count of
+    two ``step`` calls with the same draws."""
+    vo, state, imgs, draws = tex["pallas2"]
+    state = at_frame(state, 3)
+    rows = torch.zeros((2, vo.outputs[False].nbytes), dtype=torch.uint8)
+    runs0 = vo.ba_runs
+    out = vo.step_chunk(state, imgs, draws, outputs=rows)
+    assert vo.ba_runs == runs0 + 1 and out.host_frame == 5
+    s = state
+    for k in range(2):
+        row = torch.zeros(vo.outputs[False].nbytes, dtype=torch.uint8)
+        s = vo.step(s, imgs[k], draws=draws[k], outputs=row)
+        assert torch.equal(row, rows[k])
+    assert same_state(out, s) and s.host_frame == out.host_frame
+    with pytest.raises(ValueError, match="draws"):
+        vo.step_chunk(state, imgs, draws[:1])
+
+
+def test_a_sampler_without_draw_never_chunks(tex):
+    """Its bank cannot be drawn before the step: ``chunk_frames`` is 0, the
+    block driver steps every frame alone, and ``step_chunk`` raises."""
+    vo0, state, imgs, _ = tex["xla"]
+    vo = VisualOdometry(vo0.cam, vo0.config, "cpu",
+                        sampler=lambda g, v, n, k:
+                        ransac.sample_minimal_sets(g, v, n, k))
+    assert vo.chunk_frames == 0
+    with pytest.raises(TypeError, match="draw"):
+        vo.step_chunk(state, imgs, [None, None])
+    gens = [torch.Generator().manual_seed(i) for i in range(2)]
+    final, outs = scan_driver.make_scan_step(vo)(state, imgs, gens)
+    s = state
+    for k in range(2):
+        s = vo.step(s, imgs[k], generator=torch.Generator().manual_seed(k))
+        assert torch.equal(outs.T_CW[k], s.T_CW)
+    assert same_state(final, s)
+
+
+# --- the plan ----------------------------------------------------------------
+
+def flags_of(host_frame, n, every, window):
+    return tuple(ba_trigger(host_frame + 1 + k, every, window)
+                 for k in range(n))
+
+
+def test_plan_before_the_ring_fills():
+    """kitti_tuned's cadence (every 8, ring of 10) from the bootstrap's
+    frame 1: frames 2..9 hold no BA frame, so they are stepped one by one
+    (no chunk graph that a stream would replay once); frames 10..17 are a
+    chunk with the BA at frame 16, as every later chunk of the block and of
+    the blocks after it.  From frame 8 the first 8 frames hold frame 16 and
+    make a chunk at once."""
+    plan = scan_driver.plan_chunks(1, [True] * 16, 8, 8, 10)
+    assert [(s.start, s.chunk) for s in plan] == (
+        [(i, False) for i in range(8)] + [(8, True)])
+    assert all(s.flags == (False,) for s in plan[:8])
+    assert plan[8].flags == (False,) * 6 + (True, False)
+    later = [s.flags for h in (17, 33, 49)
+             for s in scan_driver.plan_chunks(h, [True] * 16, 8, 8, 10)]
+    assert set(later) == {plan[8].flags}
+    plan = scan_driver.plan_chunks(8, [True] * 16, 8, 8, 10)
+    assert [(s.start, s.chunk) for s in plan] == [(0, True), (8, True)]
+    assert plan[0].flags == plan[1].flags == (False,) * 7 + (True,)
+
+
+@pytest.mark.parametrize("offset", range(8))
+def test_plan_puts_the_ba_frame_at_each_offset(offset):
+    host = 40 - 1 - offset  # frame 40, a BA frame, is the chunk's offset-th
+    plan = scan_driver.plan_chunks(host, [True] * 8, 8, 8, 10)
+    assert len(plan) == 1 and plan[0].chunk
+    assert plan[0].flags == tuple(k == offset for k in range(8))
+
+
+def test_plan_steps_a_short_tail_and_skips_masked_frames():
+    active = [True] * 11 + [False] * 5
+    plan = scan_driver.plan_chunks(19, active, 4, 4, 4)
+    assert [(s.start, s.chunk) for s in plan] == (
+        [(0, True), (4, True)] + [(i, False) for i in range(8, 16)])
+    assert [s.flags for s in plan[2:5]] == [(True,), (False,), (False,)]
+    assert all(s.flags is None for s in plan[5:])
+    assert plan[0].flags == plan[1].flags == flags_of(19, 4, 4, 4) == (
+        True, False, False, False)
+    # A gap: only runs of K active frames make chunks.
+    gap = [True] * 3 + [False] + [True] * 6
+    plan = scan_driver.plan_chunks(20, gap, 4, 4, 4)
+    assert [(s.start, s.chunk) for s in plan] == [
+        (0, False), (1, False), (2, False), (3, False), (4, True),
+        (8, False), (9, False)]
+    assert plan[4].flags == flags_of(23, 4, 4, 4)
+    # Short blocks make no chunk.
+    assert not any(s.chunk for s in scan_driver.plan_chunks(
+        20, [True] * 3, 4, 4, 4))
+
+
+def test_plan_with_the_ba_off_and_without_chunks():
+    plan = scan_driver.plan_chunks(1, [True] * 20, CHUNK, 0, 10)
+    assert [s.start for s in plan if s.chunk] == [0, 8]
+    assert all(not any(s.flags) for s in plan)
+    plan = scan_driver.plan_chunks(1, [True] * 20, 0, 8, 10)
+    assert len(plan) == 20 and not any(s.chunk for s in plan)
+
+
+@pytest.mark.parametrize("phase", range(8))
+def test_a_long_block_after_the_ring_fills_has_one_pattern(phase):
+    plan = scan_driver.plan_chunks(40 + phase, [True] * 88, 8, 8, 10)
+    chunks = [s for s in plan if s.chunk]
+    assert len(chunks) == 11 and len({s.flags for s in chunks}) == 1
+    assert sum(chunks[0].flags) == 1
+
+
+# --- the drivers -------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def boot(scene, frames):  # noqa: F811
+    vo = make_vo(scene)
+    assert vo.chunk_frames == K
+    state = vo.bootstrap(frames[0], frames[STRIDE],
+                         intermediate=frames[1:STRIDE], generator=gen(0))
+    return vo, state
+
+
+@pytest.fixture(scope="module")
+def loop(boot, frames):  # noqa: F811
+    """One ``step`` a frame over ``IDS``: each state and each frame's
+    outputs with the landmark snapshot."""
+    vo, s = boot
+    states, outs = [], []
+    for i in IDS:
+        s = vo.step(s, frames[i], generator=gen(i))
+        states.append(s)
+        outs.append(frame_outputs(s, True))
+    return states, outs
+
+
+class Counting:
+    """Counts ``vo``'s calls of ``step_chunk`` and ``step``."""
+
+    def __init__(self, monkeypatch, vo):
+        self.chunks = self.steps = 0
+        chunk, step = vo.step_chunk, vo.step
+
+        def counted_chunk(*a, **kw):
+            self.chunks += 1
+            return chunk(*a, **kw)
+
+        def counted_step(*a, **kw):
+            self.steps += 1
+            return step(*a, **kw)
+
+        monkeypatch.setattr(vo, "step_chunk", counted_chunk)
+        monkeypatch.setattr(vo, "step", counted_step)
+
+
+def assert_outputs(outs, ref, n, landmarks=True):
+    for k, field in enumerate(outs._fields):
+        want = torch.stack([torch.as_tensor(o[k]) for o in ref[:n]])
+        got = torch.as_tensor(getattr(outs, field))
+        assert torch.equal(got, want), field
+    assert len(outs._fields) == (7 if landmarks else 4)
+
+
+@pytest.mark.parametrize("n", [2, 3, 10])
+def test_scan_step_equals_the_step_loop(boot, frames, loop, n,  # noqa: F811
+                                        monkeypatch):
+    vo, state = boot
+    states, ref = loop
+    calls = Counting(monkeypatch, vo)
+    images = torch.from_numpy(np.stack([frames[i] for i in IDS[:n]]))
+    gens = [gen(i) for i in IDS[:n]]
+    final, outs = scan_driver.make_scan_step(vo, emit_landmarks=True)(
+        state, images, gens)
+    assert_outputs(outs, ref, n)
+    assert same_state(final, states[n - 1])
+    assert final.host_frame == states[n - 1].host_frame
+    assert (calls.chunks, calls.steps) == (n // K, n % K)
+    # Without the landmark snapshot.
+    _, outs = scan_driver.make_scan_step(vo)(state, images,
+                                             [gen(i) for i in IDS[:n]])
+    assert_outputs(outs, [o[:4] for o in ref], n, landmarks=False)
+
+
+def test_masked_scan_step_equals_the_step_loop(boot, frames, loop,  # noqa: F811
+                                               monkeypatch):
+    """Seven active frames of ten: two chunks, a frame alone, and three
+    masked frames that repeat the last active frame's outputs."""
+    vo, state = boot
+    states, ref = loop
+    calls = Counting(monkeypatch, vo)
+    images = torch.from_numpy(np.stack([frames[i] for i in IDS[:7]]
+                                       + [frames[IDS[6]]] * 3))
+    run = scan_driver.make_scan_step(vo, emit_landmarks=True, masked=True)
+    final, outs = run(state, images, [gen(i) for i in IDS[:7]] + [None] * 3,
+                      [True] * 7 + [False] * 3)
+    assert_outputs(outs, ref[:7] + [ref[6]] * 3, 10)
+    assert same_state(final, states[6]) and final.host_frame == 8
+    assert (calls.chunks, calls.steps) == (2, 1)
+
+
+@pytest.mark.parametrize("block", [2, 3, 5, 17])
+def test_streaming_equals_the_step_loop(boot, frames, loop,  # noqa: F811
+                                        block, monkeypatch):
+    """Blocks below, at and across K, the padded tail masked, recovery on
+    (nothing to recover) and landmark snapshots on."""
+    vo, state = boot
+    states, ref = loop
+    calls = Counting(monkeypatch, vo)
+    final, outs, fids, info = scan_driver.run_streaming(
+        vo, state, ((i, frames[i]) for i in IDS), SEED, block=block,
+        recover=True, bootstrap_stride=STRIDE, emit_landmarks=True)
+    assert fids == IDS and info.recoveries == 0 and info.lost == 0
+    assert info.blocks == -(-len(IDS) // block)
+    assert_outputs(outs, ref, len(IDS))
+    assert same_state(final, states[-1])
+    sizes = [min(block, len(IDS) - b) for b in range(0, len(IDS), block)]
+    assert calls.chunks == sum(n // K for n in sizes)
+    assert calls.steps == sum(n % K for n in sizes)
+
+
+def per_frame_scan(vo, state, images, draws, active, landmarks):
+    """The block driver without chunks: one ``step`` per active frame, as
+    ``make_scan_step`` ran before, on the same banks."""
+    packing = vo.outputs[landmarks]
+    rows = torch.empty((images.shape[0], packing.nbytes), dtype=torch.uint8)
+    for i in range(images.shape[0]):
+        if active[i]:
+            state = vo.step(state, images[i], draws=draws[i], outputs=rows[i],
+                            landmarks=landmarks)
+        elif i:
+            rows[i].copy_(rows[i - 1])
+        else:
+            packing.pack(rows[0], frame_outputs(state, landmarks))
+    return state, rows
+
+
+def test_recovery_from_inside_a_chunk_equals_the_per_frame_driver(
+        scene, blackout_frames, monkeypatch):  # noqa: F811
+    """The blackout stream in blocks of 8 (two chunks of 3 and two frames
+    alone each): the re-bootstrap keeps a block's frames up to one inside
+    a chunk, and the rest of the block re-runs from there; the chunked
+    driver gives the per-frame driver's outputs, frames, counts and final
+    state bit for bit."""
+    blocks = []
+    draws_of = scan_driver.frame_draws
+
+    def recorded(vo, generators, active):
+        blocks.append([g.initial_seed() for g in generators if g is not None])
+        return draws_of(vo, generators, active)
+
+    monkeypatch.setattr(scan_driver, "frame_draws", recorded)
+    runs = {}
+    for name in ("chunks", "per_frame"):
+        vo = make_vo(scene)
+        s0 = vo.bootstrap(blackout_frames[0], blackout_frames[STRIDE],
+                          intermediate=blackout_frames[1:STRIDE],
+                          generator=gen(0))
+        with monkeypatch.context() as m:
+            if name == "per_frame":
+                m.setattr(scan_driver, "_scan", per_frame_scan)
+            else:
+                calls = Counting(m, vo)
+            runs[name] = scan_driver.run_streaming(
+                vo, s0, ((i, blackout_frames[i]) for i in IDS), SEED,
+                block=8, recover=True, bootstrap_stride=STRIDE,
+                emit_landmarks=True)
+        runs[name + "_blocks"], blocks[:] = list(blocks), []
+    (fa, oa, ia, na), (fb, ob, ib, nb) = runs["chunks"], runs["per_frame"]
+    assert ia == ib and tuple(na) == tuple(nb) and na.recoveries >= 1
+    for field in oa._fields:
+        np.testing.assert_array_equal(getattr(oa, field), getattr(ob, field))
+    assert same_state(fa, fb)
+    assert min(BLACKOUT) in ia and int(fa.status) == 0
+    # A block re-run from the middle of a chunk of the block before it.
+    seen = runs["chunks_blocks"]
+    assert seen == runs["per_frame_blocks"]
+    restarts = [(prev[0], nxt[0]) for prev, nxt in zip(seen, seen[1:])
+                if nxt[0] <= prev[-1]]
+    assert restarts and any((b - a) % K for a, b in restarts), seen
+    assert calls.chunks >= 4
+
+
+# --- against the JAX block driver ---------------------------------------------
+
+class JaxStreamBank(JaxTableBank):
+    """The reference's RANSAC draws for the (seed, stream) a generator was
+    seeded from (``JaxDraws``'s key), as a sampler with ``draw`` and
+    ``select`` (``JaxTableBank``'s, over tables of up to 512 valid rows,
+    the config's capacities), so the port's block driver draws every bank
+    before the block and runs it in chunks."""
+
+    def __init__(self):
+        super().__init__(512)
+        self.keys = JaxDraws()
+
+    def draw(self, generator, n, k):
+        key = jax.random.fold_in(self.keys.key,
+                                 generator.initial_seed() & 0xFFFFFFFF)
+        if k == 3:  # the step's PnP bank: the first half of split(key)
+            key = jax.random.split(key)[0]
+        return super().draw(key, n, k)
+
+
+@pytest.fixture(scope="module")
+def jax_streams(scene, frames, blackout_frames):  # noqa: F811
+    """The JAX block driver, the in-step BA every K over a ring of K, over
+    frames 3..19 of the clean and the blackout scene from the reference's
+    bootstrap, per (scene, block); run at first use."""
+    jvo = JVO(JCamera.from_matrix(scene.K), ba_config(jconfig))
+    key = jax.random.PRNGKey(SEED)
+    runs = {}
+
+    def run(name, block):
+        if (name, block) not in runs:
+            fr = frames if name == "clean" else blackout_frames
+            s0 = jvo.bootstrap(fr[0], fr[STRIDE], jax.random.fold_in(key, 0),
+                               intermediate=fr[1:STRIDE])
+            runs[name, block] = jscan.run_streaming(
+                jvo, s0, ((i, fr[i]) for i in IDS), key, block=block,
+                recover=True, bootstrap_stride=STRIDE, emit_landmarks=True)
+        return runs[name, block]
+
+    return run
+
+
+@pytest.mark.parametrize("block", [K, 7])
+@pytest.mark.parametrize("name", ["clean", "blackout"])
+def test_chunked_streaming_matches_the_reference(
+        scene, frames, blackout_frames, jax_streams, name, block,  # noqa: F811
+        monkeypatch):
+    """Blocks of K (a chunk each) and of 7 (two chunks and a frame alone),
+    the in-step BA on, recovery on: the blackout run re-bootstraps and
+    re-runs a block from inside it in both drivers.  Statuses, frames,
+    blocks and recoveries equal over the whole run; tracked counts and
+    positions through frame 15, the last BA frame but one (measured within
+    2e-5 of the path on the clean run, 7e-4 on the blackout's recovered
+    map).  From frame 16 the clean run parts from the reference as the
+    blackout run does in ``test_run_streaming_matches_reference`` (measured
+    1.2e-2 of the path at frame 16 with equal tracks, one track fewer at
+    frames 18 and 19) in the chunked driver and in the loop of ``step``
+    alike, which are bit for bit one another (the tests above)."""
+    fr = frames if name == "clean" else blackout_frames
+    _, jout, jids, jinfo = jax_streams(name, block)
+    vo = make_vo(scene, JaxStreamBank())
+    assert vo.chunk_frames == K
+    s0 = vo.bootstrap(fr[0], fr[STRIDE], intermediate=fr[1:STRIDE],
+                      generator=gen(0))
+    calls = Counting(monkeypatch, vo)
+    final, tout, tids, tinfo = scan_driver.run_streaming(
+        vo, s0, ((i, fr[i]) for i in IDS), SEED, block=block, recover=True,
+        bootstrap_stride=STRIDE, emit_landmarks=True)
+    assert calls.chunks >= 2 and vo.ba_runs > 0
+    assert tids == jids and tuple(tinfo) == tuple(jinfo)
+    if name == "blackout":
+        assert tinfo.recoveries >= 1 and tinfo.lost > 0
+    else:
+        assert tinfo.recoveries == 0 and tinfo.lost == 0
+    np.testing.assert_array_equal(tout.status, np.asarray(jout.status))
+    k = sum(1 for i in tids if i <= 15)
+    np.testing.assert_array_equal(tout.n_tracked[:k],
+                                  np.asarray(jout.n_tracked)[:k])
+    pj = np.stack([-T[:3, :3].T @ T[:3, 3]
+                   for T in np.asarray(jout.T_CW, np.float64)])
+    pt = np.stack([-T[:3, :3].T @ T[:3, 3]
+                   for T in tout.T_CW.astype(np.float64)])
+    path = np.sum(np.linalg.norm(np.diff(pj, axis=0), axis=1))
+    np.testing.assert_allclose(pt[:k], pj[:k], rtol=0, atol=1e-3 * path)
+    np.testing.assert_array_equal(final.T_CW.numpy(), tout.T_CW[-1])

@@ -640,20 +640,21 @@ def same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-def graph_vo(cuda, method="klt", **kw):
+def graph_vo(cuda, method="klt", num_frames=GRAPH_FRAMES, ba=(2, 3), **kw):
     """``tests/test_pipeline.py``'s small config on ``pallas2`` with the
-    in-step BA over a ring of 3 every 2 frames, on the card; ``method``:
-    the bootstrap's."""
+    in-step BA every ``ba[0]`` frames over a ring of ``ba[1]`` (2 and 3 by
+    default), on the card, and ``num_frames`` frames; ``method``: the
+    bootstrap's."""
     from monocular_visual_odometry_va4mr_torch.core import config as tconfig
     from monocular_visual_odometry_va4mr_torch.core.camera import Camera
     from monocular_visual_odometry_va4mr_torch.dataio import synthetic
     from monocular_visual_odometry_va4mr_torch.pipeline.vo import (
         VisualOdometry)
 
-    scene = synthetic.make_corridor_scene(seed=3, num_frames=GRAPH_FRAMES,
+    scene = synthetic.make_corridor_scene(seed=3, num_frames=num_frames,
                                           num_points=2500,
                                           image_shape=(240, 320), step=0.4)
-    frames = [synthetic.render_frame(scene, i) for i in range(GRAPH_FRAMES)]
+    frames = [synthetic.render_frame(scene, i) for i in range(num_frames)]
     cfg = tconfig.PipelineConfig(
         landmarks=tconfig.LandmarkConfig(min_dist=0.5, max_dist=120.0,
                                          min_baseline_angle_deg=1.0,
@@ -666,7 +667,8 @@ def graph_vo(cuda, method="klt", **kw):
         essential=tconfig.EssentialConfig(iterations=300, threshold_px=1.0),
         capacity=tconfig.CapacityConfig(max_landmarks=512,
                                         max_candidates=512),
-        ba=tconfig.InStepBAConfig(every=2, window=3, max_landmarks=64),
+        ba=tconfig.InStepBAConfig(every=ba[0], window=ba[1],
+                                  max_landmarks=64),
         image_shape=(240, 320), bootstrap_method=method)
     make = lambda: VisualOdometry(Camera.from_matrix(scene.K), cfg, cuda,  # noqa: E731
                                   seed=0, **kw)
@@ -1203,3 +1205,175 @@ def test_ba_refine_replays_bit_equal_to_eager(cuda):
         for a, b in zip(ring.poses, ring_eager.poses):
             assert np.array_equal(a, b)
     assert graphs.captures(cuda)[0] == captured + 1
+
+
+# --- the block driver's chunks -----------------------------------------------
+
+def positions(T_CW):
+    T = T_CW.double().cpu()
+    return -(T[:, :3, :3].mT @ T[:, :3, 3:])[..., 0]
+
+
+def test_chunk_replays_equal_frame_replays_at_full_width(cuda):
+    """``chip_smoke.py``'s main scene and configuration (376x1241,
+    kitti_tuned: K = 8, BA every 8 frames over a ring of 10) from the
+    bootstrap over frames 0..4, on uint8 frames: a chunk without a BA frame
+    (frames 5..12, the ring not yet full) and one with it (frames 13..20,
+    the BA at its 7th frame) replayed, against 16 replays of the one-frame
+    graph with the same draws: every output field and the final state bit
+    for bit (the same kernels on the same inputs), hence positions within
+    ``chip_smoke.STREAM_POS_TOL`` of the path; 3 ``klt_lk`` launches a
+    frame, one graph a chunk pattern."""
+    from monocular_visual_odometry_va4mr_torch.dataio import synthetic
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+    from monocular_visual_odometry_va4mr_torch.tools.harness import (
+        render_frames)
+
+    scene = synthetic.make_textured_scene(
+        seed=chip_smoke.SEED, num_frames=21, image_shape=chip_smoke.IMAGE_SHAPE,
+        step=1.0)
+    u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8)
+          for f in render_frames(scene, 21)]
+    _, _, vo = chip_smoke.main_path_vo(scene)
+    assert vo.chunk_frames == 8
+    gen = lambda i: runner.frame_generator(0, i, cuda)  # noqa: E731
+    s0 = vo.bootstrap(u8[0], u8[4], intermediate=u8[1:4], generator=gen(0))
+    nbytes = vo.outputs[True].nbytes
+    rows_f = torch.empty((16, nbytes), dtype=torch.uint8, device=cuda)
+    s = s0
+    for k, i in enumerate(range(5, 21)):
+        s = vo.step(s, u8[i], generator=gen(i), outputs=rows_f[k],
+                    landmarks=True)
+    imgs = torch.from_numpy(np.stack(u8[5:21])).to(cuda)
+    rows_c = torch.empty_like(rows_f)
+    before = tk2.klt_lk.launches
+    c, flags = s0, []
+    for k in (0, 8):
+        flags.append(vo.ba_flags(c, 8))
+        c = vo.step_chunk(c, imgs[k:k + 8],
+                          [vo.step_draws(gen(i)) for i in range(5 + k, 13 + k)],
+                          outputs=rows_c[k:k + 8], landmarks=True)
+    assert tk2.klt_lk.launches - before == 3 * 16
+    assert flags == [(False,) * 8, tuple(f == 16 for f in range(10, 18))]
+    chunks = [k for k in vo.graphs.graphs if k[0] == "chunk"]
+    assert sorted(k[2] for k in chunks) == sorted(flags)
+    out_f, out_c = (vo.outputs[True].views(r) for r in (rows_f, rows_c))
+    assert torch.equal(out_f[3], out_c[3])  # statuses
+    p_f, p_c = positions(out_f[0]), positions(out_c[0])
+    path = float((p_f[1:] - p_f[:-1]).norm(dim=1).sum())
+    diff = float((p_f - p_c).abs().max())
+    # Field by field: a packed row's padding between fields is never
+    # written.
+    differ = [f"out{k}" for k, (a, b) in enumerate(zip(out_f, out_c))
+              if not same_bits(a, b)]
+    differ += [f"state{k}" for k, (a, b) in enumerate(zip(s.tensors(),
+                                                           c.tensors()))
+               if not same_bits(a, b)]
+    print(f"chunk_vs_frames bit_equal={not differ} differ={differ} "
+          f"pos_diff={diff} path={path}")
+    assert not differ, (differ, diff, path)
+    assert diff <= chip_smoke.STREAM_POS_TOL * path, (diff, path)
+    assert int(c.status) == int(s.status) and c.host_frame == s.host_frame
+
+
+def test_one_capture_per_chunk_pattern_over_a_64_frame_block(cuda):
+    """kitti_tuned's cadence (BA every 8 frames over a ring of 10, K = 8) on
+    the 240x320 corridor: seven steps take the state to frame 8, then
+    ``make_scan_step`` runs a 64-frame block as 8 chunks of one pattern
+    (the BA at each chunk's last frame): one capture, 8 replays, 3
+    ``klt_lk`` launches a frame, and a loop of ``step`` over the same
+    frames gives the same statuses and positions within
+    ``chip_smoke.STREAM_POS_TOL`` of the path."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import (runner,
+                                                                scan_driver)
+
+    make, frames = graph_vo(cuda, num_frames=74, ba=(8, 10))
+    vo = make()
+    gen = lambda i: runner.frame_generator(0, i, cuda)  # noqa: E731
+    s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                     generator=gen(0))
+    for i in range(3, 10):
+        s = vo.step(s, frames[i], generator=gen(i))
+    assert s.host_frame == 8
+    ids = range(10, 74)
+    imgs = torch.from_numpy(np.stack([frames[i] for i in ids])).to(cuda)
+    replays, before = vo.graphs.replays, tk2.klt_lk.launches
+    final, outs = scan_driver.make_scan_step(vo)(s, imgs,
+                                                 [gen(i) for i in ids])
+    assert tk2.klt_lk.launches - before == 3 * 64
+    assert vo.graphs.replays - replays == 8
+    chunks = [k for k in vo.graphs.graphs if k[0] == "chunk"]
+    assert len(chunks) == 1 and chunks[0][2] == (False,) * 7 + (True,)
+    loop = []
+    for i in ids:
+        s = vo.step(s, frames[i], generator=gen(i))
+        loop.append((int(s.status), s.T_CW.cpu()))
+    assert outs.status.tolist() == [st for st, _ in loop]
+    p_l = positions(torch.stack([T for _, T in loop]))
+    path = float((p_l[1:] - p_l[:-1]).norm(dim=1).sum())
+    assert float((positions(outs.T_CW) - p_l).abs().max()) <= (
+        chip_smoke.STREAM_POS_TOL * path)
+    assert final.host_frame == s.host_frame == 72
+
+
+def test_a_state_written_after_its_replay_is_copied_in(cuda):
+    """The state buffer still holds the state the last replay returned, so
+    the next replay copies nothing in; once a field of that state is
+    written in place (its buffer's version moves on), the next replay
+    copies it in and steps from the written state, as the eager body
+    does."""
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    make, frames = graph_vo(cuda)
+    vo = make()
+    gen = lambda i: runner.frame_generator(0, i, cuda)  # noqa: E731
+    s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                     generator=gen(0))
+    s = vo.step(s, frames[3], generator=gen(3))
+    s.T_CW[0, 3] += 0.05
+    nxt = vo.step(s, frames[4], generator=gen(4))
+    ref = chip_smoke.eager_step(vo, s, frames[4], generator=gen(4))
+    for a, b in zip(nxt.tensors(), ref.tensors()):
+        assert same_bits(a, b), describe(a, b)
+
+
+# A chunk whose body reads the device on the host, in a process of its own
+# (a failed capture can leave the process's CUDA state unusable).
+CHUNK_CAPTURE_PROBE = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, "tests")
+import test_torch_cuda as t
+from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+cuda = torch.device("cuda")
+make, frames = t.graph_vo(cuda)
+vo = make()
+gen = lambda i: runner.frame_generator(0, i, cuda)
+s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                 generator=gen(0))
+body = vo._chunk_impl
+
+def reads_the_host(*args, **kw):
+    out = body(*args, **kw)
+    int(out.status)
+    return out
+
+vo._chunk_impl = reads_the_host
+imgs = torch.from_numpy(np.stack(frames[3:5])).to(cuda)
+try:
+    vo.step_chunk(s, imgs, [vo.step_draws(gen(i)) for i in (3, 4)])
+except RuntimeError:
+    print("raised", vo.graphs.replays, len(vo.graphs.graphs), flush=True)
+else:
+    print("ran", flush=True)
+"""
+
+
+def test_a_chunk_that_fails_to_capture_raises(cuda):
+    """No fallback: a chunk whose capture fails raises, and nothing has
+    replayed a one-frame graph in its place."""
+    out = subprocess.run([sys.executable, "-c", CHUNK_CAPTURE_PROBE],
+                         capture_output=True, text=True, timeout=600)
+    assert out.stdout.split() == ["raised", "0", "0"], out.stderr[-2000:]
