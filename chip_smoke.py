@@ -211,8 +211,14 @@ E. ``parallel/`` on the card: ``multi_seq.run_sequences_dp`` on the batched
    one-rank NCCL group
    (``FileStore`` under ``build/``): ``run_ba_sharded`` against ``run_ba``
    and ``run_traj_ba`` against the per-segment BA, with the collectives
-   each call issued.  More ranks than one need more cards; the CPU tests
-   hold 2 and 4 ranks on gloo.
+   each call issued; then both again replayed (one CUDA graph of the GN
+   iteration a function, its all-reduce inside, replayed once an
+   iteration) and op by op (``graphs.eager()``): bit for bit, replays
+   equal to the iterations, one capture a function, the same collectives
+   counted, with host ms, dispatches, device events and device ms of
+   each side and the capture seconds (the ``sharded_graph`` entry of the
+   ``parallel`` line).  More ranks than one need more cards; the CPU
+   tests hold 2 and 4 ranks on gloo.
 Phase 4 also streams the float32 frames and steps them in a loop with the
 same generators, for the four ATEs of {block driver, step loop} x {uint8,
 float32}; phase 6 runs both CLI calls with ``--posegraph`` (the keyframe
@@ -2238,6 +2244,7 @@ def phase_parallel(ctx, scene, frames):
     import torch.distributed as dist
 
     from monocular_visual_odometry_va4mr_torch.backend import ba
+    from monocular_visual_odometry_va4mr_torch.core import graphs
     from monocular_visual_odometry_va4mr_torch.dataio import datasets
     from monocular_visual_odometry_va4mr_torch.parallel import (
         ba_sharded, multihost, traj_ba)
@@ -2265,6 +2272,14 @@ def phase_parallel(ctx, scene, frames):
     multihost.initialize(f"file://{store}/store", 1, 0)
     try:
         dev = torch.device(DEVICE)
+        # NCCL makes its communicator at the group's first collective: timed
+        # here, so that the first sharded BA's capture holds none of it.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multihost.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        communicator_s = time.perf_counter() - t0
+        captured = graphs.captures(dev)[0]
         noisy, _, tcam = traj_ba.build_synthetic_traj(1, 6, 256, seed=0)
         noisy = traj_ba.TrajSegments(*(t.to(dev) for t in noisy))
         win = ba.BAWindow(torch.cat([noisy.anchor_T_CW, noisy.T_CW]),
@@ -2283,16 +2298,26 @@ def phase_parallel(ctx, scene, frames):
                                 damping=1e-2, n_fixed=2)
         nccl = dict(
             backend=dist.get_backend(), world=dist.get_world_size(),
+            communicator_s=communicator_s,
             ba_pos_diff=float((out_s.T_CW - out_r.T_CW).abs().max()),
             ba_lm_diff=float((out_s.lm_xyz - out_r.lm_xyz).abs().max()),
             ba_collectives=[[*k, n] for k, n in comm_ba.items()],
             ba_payload_expected=4 * (36 * W * W + 6 * W + 1),
             traj_pos_diff=float((seg.T_CW - ref_traj.T_CW[2:]).abs().max()),
             traj_collectives=[[*k, n] for k, n in comm_traj.items()])
+        calls = (
+            ("ba_sharded", lambda: ba_sharded.run_ba_sharded(
+                ba_sharded.shard_window(win, 0, 1), tcam,
+                iters=PAR_BA_ITERS), PAR_BA_ITERS, comm_ba),
+            ("traj_ba", lambda: traj_ba.run_traj_ba(
+                traj_ba.shard_segments(noisy, 0, 1), tcam,
+                iters=PAR_TRAJ_ITERS), PAR_TRAJ_ITERS, comm_traj))
+        sharded = sharded_graph(dev, calls, captured)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     res["nccl_one_rank"] = nccl
+    res["sharded_graph"] = sharded
     print("parallel " + json.dumps(res), flush=True)
     if not ok:
         raise RuntimeError(f"lockstep failed its gates: {res}")
@@ -2304,6 +2329,66 @@ def phase_parallel(ctx, scene, frames):
                             PAR_BA_ITERS}
             and comm_traj == {("all_reduce", 4): PAR_TRAJ_ITERS}):
         raise RuntimeError(f"sharded BA on NCCL differs: {nccl}")
+    return res
+
+
+def sharded_graph(dev, calls, captured):
+    """The sharded BAs replayed (one graph of the GN iteration a function,
+    its all-reduce inside, replayed once an iteration, ``core.graphs.scan``)
+    against the same calls op by op (``graphs.eager()``) on the one-rank
+    NCCL group, after phase E's first call of each has captured its graph
+    (``captured``: the shared cache's captures before it).  Each call once
+    more both ways: outputs bit for bit, ``iters`` replays, and the
+    collectives of the first call (``calls``' last item) counted by the
+    replay and by op by op alike; one capture a function, its seconds; the
+    host ms, host dispatches, device events and device ms of a call both
+    ways (``replayed_and_eager``).  Prints the ``sharded_graph`` line
+    under ``parallel``; every check raises."""
+    import torch
+
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+    from monocular_visual_odometry_va4mr_torch.parallel import multihost
+
+    def flat(out):
+        window, costs = out
+        return [window.T_CW, window.lm_xyz, costs]
+
+    def eager(fn):
+        def run():
+            with graphs.eager():
+                return fn()
+        return run
+
+    capture_s = graphs.shared(dev).capture_s if dev.type == "cuda" else {}
+    res = {}
+    for name, fn, iters, comm in calls:
+        replays = graphs.replays(dev)
+        multihost.COMM.clear()
+        out = flat(fn())
+        got = dict(multihost.COMM)
+        replayed = graphs.replays(dev) - replays
+        multihost.COMM.clear()
+        want = flat(eager(fn)())
+        got_eager = dict(multihost.COMM)
+        keys = [k for k in capture_s if k[0][0] == name]
+        res[name] = dict(
+            iters=iters, replays=replayed, captures=len(keys),
+            capture_s=sum(capture_s[k] for k in keys),
+            bit_equal=bit_equal(out, want),
+            collectives=[[*k, n] for k, n in got.items()],
+            collectives_eager=[[*k, n] for k, n in got_eager.items()],
+            **replayed_and_eager(fn, eager(fn)))
+        ok = (res[name]["bit_equal"] and replayed == iters and len(keys) == 1
+              and got == got_eager == comm)
+        res[name]["ok"] = ok
+    res["captures"] = graphs.captures(dev)[0] - captured
+    print("sharded_graph " + json.dumps(res), flush=True)
+    if not (res["captures"] == len(calls)
+            and all(res[name]["ok"] for name, *_ in calls)):
+        raise RuntimeError(f"a replayed sharded BA differs from op by op, "
+                           f"replays other than its iterations, captures "
+                           f"other than once or counts other collectives: "
+                           f"{res}")
     return res
 
 

@@ -13,15 +13,17 @@ over its own inputs.
 
 ``shared(device)`` is the cache of the functions that belong to no VO, the
 counterpart of ``jax.jit``'s own cache: the pose graphs' Gauss-Newton
-iterations (``backend/posegraph.py``) and the runner's windowed BA
-(``pipeline/ba_refine.py``).  ``scan(key, body, carry, consts, iters)``
-runs a loop on any device: on a CUDA device it replays the body's graph in
-``shared``, on the CPU it runs the body op by op, and so does every device
-inside ``eager()``, which callers enter to compare a replay with the same
-work op by op.
+iterations (``backend/posegraph.py``), the runner's windowed BA
+(``pipeline/ba_refine.py``) and the sharded BAs' iterations with their
+collectives (``parallel/ba_sharded.py``, ``parallel/traj_ba.py``).
+``scan(key, body, carry, consts, iters)`` runs a loop on any device: on a
+CUDA device it replays the body's graph in ``shared``, on the CPU it runs
+the body op by op, and so does every device inside ``eager()``, which
+callers enter to compare a replay with the same work op by op.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import threading
@@ -32,6 +34,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops import klt_pallas, klt_pallas2
+from ..parallel import multihost
 from .state import Packing
 
 # The kernel wrappers whose launch counts a replay adds to.
@@ -123,8 +126,13 @@ class GraphCache:
     waits on the device inside it (``_HOST_WAITS``) ends one capture and
     begins the next (``_Segments``), so a key may hold several graphs with
     such calls between them.  Capturing records how many launches of each
-    counted kernel the graphs hold; ``replay(key)`` adds them to the
-    wrappers' counts, and the warm-up and the capture add nothing.
+    counted kernel the graphs hold, and which collectives of
+    ``parallel.multihost`` (``COMM``: the wrappers count when they run, at
+    the warm-up and the capture, never at a replay); ``replay(key)`` adds
+    both to the counts, and the warm-up and the capture add nothing.  A
+    graph's collectives run on the communicators that exist when it is
+    captured: the warm-up's collectives make them, and every rank of a
+    group warms up and captures the same collectives in the same order.
 
     ``call(key, fn, inputs)`` is the graph of a function of tensors that
     returns a tuple of tensors, one graph per key and the inputs' shapes
@@ -140,6 +148,7 @@ class GraphCache:
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, tuple] = {}  # key -> (steps, launches held)
+        self.comm: Dict[tuple, collections.Counter] = {}  # collectives held
         self.capture_s: Dict[tuple, float] = {}  # warm-up included
         self.replays = 0
         self._io: Dict[tuple, tuple] = {}  # key -> static buffers
@@ -148,12 +157,14 @@ class GraphCache:
                 warm_up: Callable[[], object]) -> None:
         t0 = time.perf_counter()
         counts = _launch_counts()
+        comm = collections.Counter(multihost.COMM)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             warm_up()
         warmed = _launch_counts()
+        comm_warmed = collections.Counter(multihost.COMM)
         segments = _Segments(self.pool)
         gc.collect()
         collecting = gc.isenabled()
@@ -172,9 +183,13 @@ class GraphCache:
                 gc.enable()
         main.wait_stream(side)
         held = tuple(a - b for a, b in zip(_launch_counts(), warmed))
+        comm_held = multihost.COMM - comm_warmed
         _set_launch_counts(counts)
+        multihost.COMM.clear()
+        multihost.COMM.update(comm)
         torch.cuda.synchronize(self.device)
         self.graphs[key] = (segments.steps, held)
+        self.comm[key] = comm_held
         self.capture_s[key] = time.perf_counter() - t0
 
     def replay(self, key) -> None:
@@ -182,6 +197,7 @@ class GraphCache:
         _Segments.replay(steps)
         _set_launch_counts(tuple(c + h for c, h
                                  in zip(_launch_counts(), held)))
+        multihost.COMM.update(self.comm[key])
         self.replays += 1
 
     def call(self, key, fn: Callable, inputs: Sequence[torch.Tensor],

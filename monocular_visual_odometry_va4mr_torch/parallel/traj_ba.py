@@ -16,16 +16,23 @@ neighbour).  The halo is exchanged EVERY iteration, so corrections
 propagate left to right one segment per iteration: block-Jacobi relaxation.
 Communication per iteration and rank: one send and one receive of (2,4,4)
 float32 poses, 128 bytes, and one all-reduce of the 4-byte cost.
+
+The loop is ``core.graphs.scan`` of :func:`gn_iteration`: on a CUDA device
+one graph of the iteration, the halo exchange and the all-reduce inside,
+replayed once an iteration; on the CPU (gloo) and inside
+``core.graphs.eager()`` the iteration op by op, with the same bits.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..backend import ba
-from ..core import lie
+from ..core import graphs, lie
 from ..core.camera import Camera
 from . import multihost
 
@@ -56,6 +63,27 @@ def shard_segments(seg: TrajSegments, rank: int, world: int) -> TrajSegments:
                         obs_mask=seg.obs_mask[rank:rank + 1])
 
 
+def gn_iteration(cam: Camera, huber_px: float, damping: float, group,
+                 T_local, lm_local, anchor_T_CW, obs_uv, obs_mask):
+    """One halo-exchanged Gauss-Newton iteration of :func:`run_traj_ba` on
+    this rank's segment, the body of its loop: ((new T_local, new
+    lm_local), (cost summed over the ranks,)).  Whether the rank receives a
+    halo is its rank's (``rank > 0``), known on the host; it reads nothing
+    on the host, so a CUDA graph holds it with its collectives."""
+    # Halo: the left neighbour's last two poses; rank 0 uses the anchors.
+    halo = torch.empty_like(anchor_T_CW)
+    got = multihost.shift_right(T_local[-2:], halo, group)
+    window = ba.BAWindow(T_CW=torch.cat([halo if got else anchor_T_CW,
+                                         T_local]),
+                         lm_xyz=lm_local, obs_uv=obs_uv, obs_mask=obs_mask)
+    S_blk, rhs, Hpp_inv, Hcp, b_p, cost = ba.build_normal_blocks(
+        window, cam, huber_px=huber_px, damping=damping)
+    delta_c = ba.solve_camera_system(S_blk, rhs, n_fixed=2)
+    new_window = ba.apply_updates(window, delta_c, Hpp_inv, Hcp, b_p)
+    return ((new_window.T_CW[2:], new_window.lm_xyz),
+            (multihost.all_reduce(cost.reshape(1), group)[0],))
+
+
 def run_traj_ba(seg_local: TrajSegments, cam: Camera, *, group=None,
                 iters: int = 8, huber_px: float = 3.0,
                 damping: float = 1e-2):
@@ -68,26 +96,22 @@ def run_traj_ba(seg_local: TrajSegments, cam: Camera, *, group=None,
     measured damping 1e-4 diverging on the synthetic trajectory, 1e-2
     converging).
 
+    On a CUDA device one graph of :func:`gn_iteration` per camera,
+    ``huber_px``, ``damping``, rank, process group and shapes, replayed
+    ``iters`` times.
+
     Returns (the segment with updated T_CW / lm_xyz, costs (iters,) summed
     over ranks)."""
-    T_local, lm_local = seg_local.T_CW, seg_local.lm_xyz
-    obs_uv, obs_mask = seg_local.obs_uv[0], seg_local.obs_mask[0]
-    halo = torch.empty_like(seg_local.anchor_T_CW)
-    costs = []
-    for _ in range(iters):
-        # Halo: the left neighbour's last two poses; rank 0 uses the anchors.
-        got = multihost.shift_right(T_local[-2:], halo, group)
-        window = ba.BAWindow(
-            T_CW=torch.cat([halo if got else seg_local.anchor_T_CW, T_local]),
-            lm_xyz=lm_local, obs_uv=obs_uv, obs_mask=obs_mask)
-        S_blk, rhs, Hpp_inv, Hcp, b_p, cost = ba.build_normal_blocks(
-            window, cam, huber_px=huber_px, damping=damping)
-        delta_c = ba.solve_camera_system(S_blk, rhs, n_fixed=2)
-        new_window = ba.apply_updates(window, delta_c, Hpp_inv, Hcp, b_p)
-        T_local, lm_local = new_window.T_CW[2:], new_window.lm_xyz
-        costs.append(multihost.all_reduce(cost.reshape(1), group)[0])
-    return (seg_local._replace(T_CW=T_local, lm_xyz=lm_local),
-            torch.stack(costs))
+    pg = group if group is not None else dist.group.WORLD
+    body = functools.partial(gn_iteration, cam, float(huber_px),
+                             float(damping), group)
+    (T_local, lm_local), (costs,) = graphs.scan(
+        ("traj_ba", cam, float(huber_px), float(damping),
+         dist.get_rank(group), pg), body,
+        (seg_local.T_CW, seg_local.lm_xyz),
+        (seg_local.anchor_T_CW, seg_local.obs_uv[0], seg_local.obs_mask[0]),
+        iters)
+    return seg_local._replace(T_CW=T_local, lm_xyz=lm_local), costs
 
 
 def build_synthetic_traj(D: int, S: int, L: int, *, seed: int = 0,

@@ -13,9 +13,12 @@ is 1 (NCCL; one card has one rank); on the CPU, gloo worlds of 1, 2, 4 and
 ``--weak``), and trajectories of 8 keyframes a segment (``--weak``; else
 max(2, 8 / world)) with 512 landmarks a segment.
 
-Per row: ``ms_per_iter`` sharded (rank 0's, after a barrier), unsharded
-(rank 0 alone), their ratio ``unsharded_over_sharded`` (1.0: splitting and
-the collectives cost nothing; below 1.0 they cost), the model's bytes an
+Per row: ``ms_per_iter`` sharded (rank 0's, after a barrier; on the card
+one replay of the iteration's CUDA graph, its collectives inside,
+``replayed`` true), ``ms_per_iter_eager`` the same calls op by op
+(``core.graphs.eager()``; on the CPU both are op by op), unsharded (rank 0
+alone), the ratio ``unsharded_over_sharded`` (1.0: splitting and the
+collectives cost nothing; below 1.0 they cost), the model's bytes an
 iteration (``model_bytes_per_iter``: 4 (36 W^2 + 6 W + 1) for the window
 BA's one all-reduce; 2 x 16 x 4 + 4 for the trajectory BA's halo and cost),
 and the counted bytes: the most any rank sent an iteration (an all-reduce's
@@ -121,6 +124,16 @@ def _sent_per_iter(comm, iters):
     return total / iters
 
 
+def _eager(fn):
+    """``fn`` op by op, its graphs not replayed."""
+    from ..core import graphs
+
+    def run():
+        with graphs.eager():
+            return fn()
+    return run
+
+
 def _unsharded(rank, fn, dev, iters, reps, warmup):
     import torch.distributed as dist
 
@@ -134,6 +147,7 @@ def lm_worker(rank, world, W, L_total, weak, iters, reps, warmup, device):
     import torch.distributed as dist
 
     from ..backend import ba
+    from ..core import graphs
     from ..parallel import ba_sharded
 
     dev = torch.device(device)
@@ -148,10 +162,12 @@ def lm_worker(rank, world, W, L_total, weak, iters, reps, warmup, device):
     comm = _comm_of(sharded)
     dist.barrier()
     t = _time(sharded, dev, reps, warmup) / iters
+    t_eager = _time(_eager(sharded), dev, reps, warmup) / iters
     t_un = _unsharded(rank, lambda: ba.run_ba(window, cam, iters=iters), dev,
                       iters, reps, warmup)
-    return dict(L=L, t=t, t_un=t_un, comm=comm,
-                sent=_sent_per_iter(comm, iters), backend=dist.get_backend())
+    return dict(L=L, t=t, t_eager=t_eager, t_un=t_un, comm=comm,
+                sent=_sent_per_iter(comm, iters), backend=dist.get_backend(),
+                replayed=graphs.replaying(dev))
 
 
 def kf_worker(rank, world, S, L_seg, weak, iters, reps, warmup, device):
@@ -159,6 +175,7 @@ def kf_worker(rank, world, S, L_seg, weak, iters, reps, warmup, device):
     import torch.distributed as dist
 
     from ..backend import ba
+    from ..core import graphs
     from ..parallel import traj_ba
 
     dev = torch.device(device)
@@ -173,17 +190,21 @@ def kf_worker(rank, world, S, L_seg, weak, iters, reps, warmup, device):
     comm = _comm_of(sharded)
     dist.barrier()
     t = _time(sharded, dev, reps, warmup) / iters
+    t_eager = _time(_eager(sharded), dev, reps, warmup) / iters
     window = _to(global_window(noisy, world, S_eff, L_seg), dev)
     t_un = _unsharded(rank, lambda: ba.run_ba(window, cam, iters=iters), dev,
                       iters, reps, warmup)
-    return dict(kframes=world * S_eff, t=t, t_un=t_un, comm=comm,
-                sent=_sent_per_iter(comm, iters), backend=dist.get_backend())
+    return dict(kframes=world * S_eff, t=t, t_eager=t_eager, t_un=t_un,
+                comm=comm, sent=_sent_per_iter(comm, iters),
+                backend=dist.get_backend(), replayed=graphs.replaying(dev))
 
 
 def row(sharding, world, ranks, model, iters):
     r0 = ranks[0]
     out = dict(sharding=sharding, shards=world, iters=iters,
-               ms_per_iter=1e3 * r0["t"], ms_per_iter_unsharded=1e3 * r0["t_un"],
+               ms_per_iter=1e3 * r0["t"], replayed=r0["replayed"],
+               ms_per_iter_eager=1e3 * r0["t_eager"],
+               ms_per_iter_unsharded=1e3 * r0["t_un"],
                unsharded_over_sharded=r0["t_un"] / r0["t"],
                model_bytes_per_iter=model,
                counted_bytes_per_iter=max(r["sent"] for r in ranks),

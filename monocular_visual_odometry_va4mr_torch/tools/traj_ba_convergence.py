@@ -13,6 +13,13 @@ the start, on a world of D ranks (one segment a rank); it has converged
 when its camera centres are within ``--tol`` of the centralised ones, or
 its error against the ground truth is within 1.1x the centralised one's.
 
+Beside them, the ms of one iteration of the distributed solve (``iters``
+iterations, the converged count or ``--max-iters``; the median of
+``REPS`` synced calls over ``iters``): ``ms_per_iter`` as it runs (on the
+card one replay of the iteration's CUDA graph, its collectives inside,
+``replayed`` true) and ``ms_per_iter_eager`` op by op
+(``core.graphs.eager()``; on the CPU both are op by op).
+
 Worlds (``harness.run_world``): D = 1 on the card (NCCL; one card has one
 rank), D = 1, 2, 4, 8 gloo processes on the CPU.  One JSON line per D with
 the JAX tool's keys, then a summary.
@@ -29,6 +36,9 @@ import numpy as np
 import torch
 
 from . import harness
+
+REPS = 5
+TIMES = dict(ms_per_iter=None, ms_per_iter_eager=None)
 
 
 def cam_positions(T_CW):
@@ -71,6 +81,7 @@ def centralised(noisy, D, S, L, cam, device="cuda"):
 def worker(rank, world, S, L, tol, max_iters, device):
     """One rank: the centralised solve (every rank, so every rank takes the
     same decisions), then the distributed one until it converges."""
+    from ..core import graphs
     from ..parallel import multihost, traj_ba
 
     dev = torch.device(device)
@@ -91,9 +102,22 @@ def worker(rank, world, S, L, tol, max_iters, device):
         if dist_last < tol or gt_err_last <= 1.1 * ref_gt_err:
             it_needed = iters
             break
+    iters = it_needed or max_iters
+
+    def solve():
+        return traj_ba.run_traj_ba(local, cam, iters=iters)
+
+    def eager():
+        with graphs.eager():
+            return solve()
+
     return {"D": D, "kf": D * S, "iters_to_match_global": it_needed,
             "traj_ba_gt_err": gt_err_last, "global_gt_err": ref_gt_err,
-            "dist_to_global": dist_last}
+            "dist_to_global": dist_last, "timed_iters": iters,
+            "replayed": graphs.replaying(dev),
+            "ms_per_iter": harness.host_ms(solve, dev, reps=REPS) / iters,
+            "ms_per_iter_eager": harness.host_ms(eager, dev,
+                                                 reps=REPS) / iters}
 
 
 def main(argv=None) -> int:
@@ -118,7 +142,8 @@ def main(argv=None) -> int:
     for D in worlds:
         ranks = harness.run_world(worker, D, args.segment_kf, args.landmarks,
                                   args.tol, args.max_iters, device.type)
-        if any(r != ranks[0] for r in ranks):
+        # Each rank times its own calls; everything else is every rank's.
+        if any(dict(r, **TIMES) != dict(ranks[0], **TIMES) for r in ranks):
             raise RuntimeError(f"the ranks of D={D} disagree: {ranks}")
         rows.append(ranks[0])
         harness.emit({**ranks[0], **fields})

@@ -611,6 +611,55 @@ def test_traj_ba_on_nccl_equals_segment_ba(cuda, nccl_group):
     assert (seg.T_CW - ref.T_CW[2:]).abs().max() <= 2e-4
 
 
+def sharded_calls(cuda):
+    """(name, call, iterations, collectives of a call) of both sharded BAs
+    on the one-rank group."""
+    from monocular_visual_odometry_va4mr_torch.parallel import (ba_sharded,
+                                                                traj_ba)
+
+    noisy, win, cam = nccl_window(cuda)
+    W = win.T_CW.shape[0]
+    return (
+        ("ba_sharded", lambda: ba_sharded.run_ba_sharded(
+            ba_sharded.shard_window(win, 0, 1), cam, iters=5), 5,
+         {("all_reduce", 4 * (36 * W * W + 6 * W + 1)): 5}),
+        ("traj_ba", lambda: traj_ba.run_traj_ba(
+            traj_ba.shard_segments(noisy, 0, 1), cam, iters=4), 4,
+         {("all_reduce", 4): 4}))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["ba_sharded", "traj_ba"])
+def test_sharded_ba_replays_bit_equal_to_op_by_op(cuda, nccl_group, which):
+    """Each sharded BA replays one graph of its GN iteration, its
+    all-reduce inside, ``iters`` times a call (``core.graphs.scan``):
+    poses, landmarks and costs bit for bit the same call op by op
+    (``graphs.eager()``).  A second call of the key captures nothing, and
+    each call counts the collectives of a call op by op (the capture's
+    are added at each replay, the warm-up's and the capture's are not)."""
+    from monocular_visual_odometry_va4mr_torch.core import graphs
+    from monocular_visual_odometry_va4mr_torch.parallel import multihost
+
+    _, call, iters, comm = sharded_calls(cuda)[which]
+    captured = graphs.captures(cuda)[0]
+    outs = []
+    for _ in range(2):
+        replays = graphs.replays(cuda)
+        multihost.COMM.clear()
+        outs.append(call())
+        assert multihost.COMM == comm
+        assert graphs.replays(cuda) == replays + iters
+        assert graphs.captures(cuda)[0] == captured + 1
+    multihost.COMM.clear()
+    with graphs.eager():
+        want = call()
+    assert multihost.COMM == comm
+    for out in outs:
+        (a, costs), (b, want_costs) = out, want
+        for x, y in ((a.T_CW, b.T_CW), (a.lm_xyz, b.lm_xyz),
+                     (costs, want_costs)):
+            assert x.is_cuda and same_bits(x, y), describe(x, y)
+
+
 # --- the captured step -------------------------------------------------------
 
 GRAPH_FRAMES = 30  # 27 steps: the ring of 3 wraps 9 times, BA every 2

@@ -31,6 +31,10 @@ from monocular_visual_odometry_va4mr_torch.parallel import (ba_sharded,
                                                             multihost,
                                                             traj_ba)
 
+# One thread, as the workers: the single-device references round as they
+# do whichever other test files share the process.
+torch.set_num_threads(1)
+
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
 BA_W = 8
 BA_ITERS = 4
@@ -120,6 +124,7 @@ def _worker(rank, world, store, out_dir):
     import copy
 
     from monocular_visual_odometry_va4mr_torch.pipeline import ba_refine
+    from test_torch_sharded_graph import loop_ba_sharded, loop_traj_ba
 
     torch.set_num_threads(1)
     multihost.initialize(f"file://{store}", world, rank)
@@ -135,6 +140,12 @@ def _worker(rank, world, store, out_dir):
         ba_sharded.shard_window(torch_window(ba_problem()), rank, world),
         cam, iters=BA_ITERS))
     res["ba"] = dict(T_CW=w.T_CW, lm_xyz=w.lm_xyz, costs=costs, comm=comm)
+    # The loops as they stood before their scans, on the same inputs.
+    (w, costs), comm = comm_of(lambda: loop_ba_sharded(
+        ba_sharded.shard_window(torch_window(ba_problem()), rank, world),
+        cam, iters=BA_ITERS))
+    res["ba_loop"] = dict(T_CW=w.T_CW, lm_xyz=w.lm_xyz, costs=costs,
+                          comm=comm)
     for L in PAYLOAD_LMS:
         _, comm = comm_of(lambda: ba_sharded.run_ba_sharded(
             ba_sharded.shard_window(torch_window(ba_problem(L)), rank, world),
@@ -149,6 +160,11 @@ def _worker(rank, world, store, out_dir):
             damping=damping))
         res[name] = dict(T_CW=seg.T_CW, lm_xyz=seg.lm_xyz, costs=costs,
                          comm=comm)
+        (seg, costs), comm = comm_of(lambda: loop_traj_ba(
+            traj_ba.shard_segments(noisy, rank, world), tcam, iters=iters,
+            damping=damping))
+        res[name + "_loop"] = dict(T_CW=seg.T_CW, lm_xyz=seg.lm_xyz,
+                                   costs=costs, comm=comm)
 
     state, ring = refine_inputs()
     mesh = multihost.global_mesh("lm")
@@ -242,6 +258,20 @@ def test_ba_sharded_payload_is_the_camera_system(worlds, world):
         for L in PAYLOAD_LMS:
             assert r[f"payload_{L}"] == {("all_reduce", payload): 3}
         assert r["ba"]["comm"] == {("all_reduce", payload): BA_ITERS}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_scans_are_the_loops_they_replace(worlds, world):
+    """``run_ba_sharded`` and ``run_traj_ba`` as ``core.graphs.scan`` of
+    their iteration (op by op on gloo) are bit for bit the loops as they
+    stood (``tests/test_torch_sharded_graph.py``) on every rank, with the
+    same collectives."""
+    for r in worlds[world]:
+        for name in ("ba", "traj_1", "traj_12"):
+            new, old = r[name], r[name + "_loop"]
+            for key in ("T_CW", "lm_xyz", "costs"):
+                assert torch.equal(new[key], old[key]), (name, key)
+            assert new["comm"] == old["comm"]
 
 
 def test_shard_window_pads_the_last_block():

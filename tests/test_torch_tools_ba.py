@@ -214,6 +214,10 @@ def test_ba_scaling_counted_bytes_equal_the_jax_model(scaling_rows):
     r = rows["keyframe", 1]
     assert r["counted_bytes_per_iter"] == 4
     assert r["comm_by_rank"] == [{"all_reduce:4": 3}]
+    # Op by op beside the run as it goes (both op by op on the CPU).
+    for r in rows.values():
+        assert r["replayed"] is False
+        assert r["ms_per_iter"] > 0 and r["ms_per_iter_eager"] > 0
 
 
 def test_ba_scaling_claims_no_efficiency(scaling_rows):
@@ -240,6 +244,9 @@ def test_traj_ba_convergence_lines(monkeypatch, tmp_path, capsys):
     for r in out[:-1]:
         assert keys <= set(r) and r["kf"] == 4 * r["D"]
         assert r["iters_to_match_global"] is not None
+        assert r["timed_iters"] == r["iters_to_match_global"]
+        assert r["replayed"] is False
+        assert r["ms_per_iter"] > 0 and r["ms_per_iter_eager"] > 0
     assert out[-1]["iters_to_match_global"] == [
         r["iters_to_match_global"] for r in out[:-1]]
 
