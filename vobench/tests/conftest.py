@@ -1,0 +1,15 @@
+"""The benchmark's own tests: ``python -m pytest vobench/tests -q`` from
+the root of the checkout.  Tests marked ``cuda`` need a card and skip
+without one (decided inside each test); on the card machine:
+``python -m pytest vobench/tests -q -m cuda``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
