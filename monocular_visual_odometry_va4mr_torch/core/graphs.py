@@ -35,6 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops import klt_pallas, klt_pallas2
 from ..parallel import multihost
+from . import spans
 from .state import Packing
 
 # The kernel wrappers whose launch counts a replay adds to.
@@ -105,8 +106,9 @@ class _Segments(TorchDispatchMode):
                 step.replay()
             else:
                 func, args, kwargs, out = step
-                for kept, new in zip(out, func(*args, **kwargs)):
-                    kept.copy_(new)
+                with spans.span("graph.host_wait"):
+                    for kept, new in zip(out, func(*args, **kwargs)):
+                        kept.copy_(new)
 
 
 class GraphCache:
@@ -194,7 +196,10 @@ class GraphCache:
 
     def replay(self, key) -> None:
         steps, held = self.graphs[key]
-        _Segments.replay(steps)
+        # The graphs alternate with the host waits between them.
+        with spans.span("graph.replay", key=key,
+                        segments=(len(steps) + 1) // 2):
+            _Segments.replay(steps)
         _set_launch_counts(tuple(c + h for c, h
                                  in zip(_launch_counts(), held)))
         multihost.COMM.update(self.comm[key])
@@ -203,6 +208,7 @@ class GraphCache:
     def call(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
              host: bool = False) -> List[torch.Tensor]:
         key = (key,) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        spans.h2d(sum(t.nbytes for t in inputs if t.device.type == "cpu"))
         if key in self._io:
             for buf, t in zip(self._io[key][0], inputs):
                 buf.copy_(t)
@@ -223,7 +229,10 @@ class GraphCache:
             self._io[key] = (static, out["packing"], out["buf"])
         _, packing, buf = self._io[key]
         self.replay(key)
-        return packing.views(buf.cpu() if host else buf.clone())
+        if host:
+            spans.d2h(buf.nbytes)
+            return packing.views(buf.cpu())
+        return packing.views(buf.clone())
 
     def scan(self, key, body: Callable, carry: Sequence[torch.Tensor],
              consts: Sequence[torch.Tensor], iters: int):

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.state import STATUS_TRACKING, FrameState
 from .vo import VisualOdometry
 
@@ -80,7 +81,15 @@ def _T_WC(T_CW: np.ndarray) -> np.ndarray:
     return T_WC
 
 
+def _reads(*tensors) -> None:
+    """Count the blocking reads of ``tensors``, all on one device, that the
+    host makes (on the card)."""
+    if tensors[0].is_cuda:
+        spans.d2h(sum(t.nbytes for t in tensors), len(tensors))
+
+
 def _record(frame: int, state: FrameState, wall_ms: float) -> FrameRecord:
+    _reads(state.T_CW, state.n_inliers, state.n_tracked, state.status)
     return FrameRecord(frame=frame,
                        T_WC=_T_WC(state.T_CW.cpu().numpy()),
                        n_inliers=int(state.n_inliers),
@@ -131,6 +140,7 @@ def map_scale_from_points(X_w_old: np.ndarray, fresh: FrameState, cam,
     uv_old = np.stack([fx * xc[:, 0] / z_old + cx,
                        fy * xc[:, 1] / z_old + cy], axis=1)
 
+    _reads(fresh.lm_xyz, fresh.lm_valid)
     Xl = fresh.lm_xyz.cpu().numpy().astype(np.float64)
     vl = fresh.lm_valid.cpu().numpy()
     z_f = Xl[:, 2]
@@ -171,6 +181,11 @@ def reanchor_state(fresh: FrameState, anchor_T_CW: np.ndarray,
     R_A = A[:3, :3]
     t_A = A[:3, 3]
     dev = fresh.T_CW.device
+    moved = (fresh.T_CW, fresh.lm_xyz, fresh.lm_T_CW_first,
+             fresh.cand_T_CW_first)
+    _reads(*moved)
+    if dev.type == "cuda":
+        spans.h2d(sum(t.nbytes for t in moved))
 
     def compose(T_local: torch.Tensor) -> torch.Tensor:
         T = T_local.cpu().numpy().astype(np.float64)
@@ -188,6 +203,7 @@ def reanchor_state(fresh: FrameState, anchor_T_CW: np.ndarray,
 
 def _snapshot(state: FrameState, image) -> Dict:
     """Host-side pull of the state a viewer draws."""
+    _reads(state.lm_valid, state.lm_inlier, state.lm_uv, state.lm_xyz)
     lm_valid = state.lm_valid.cpu().numpy()
     lm_inlier = state.lm_inlier.cpu().numpy()
     lm_uv = state.lm_uv.cpu().numpy()
@@ -284,86 +300,109 @@ def run_sequence(
     for idx, img in it:
         if resume_at is not None and idx <= resume_at:
             continue
-        t0 = time.perf_counter()
-        state = vo.step(state, img, generator=frame_generator(seed, idx, dev))
+        with spans.span("runner.frame", frame=idx):
+            t0 = time.perf_counter()
+            state = vo.step(state, img,
+                            generator=frame_generator(seed, idx, dev))
 
-        if recover:
-            lost = int(state.status) != STATUS_TRACKING
-            lost_streak = lost_streak + 1 if lost else 0
-            if (lost_streak >= recover_after
-                    and len(recent) >= bootstrap_stride):
-                # Re-bootstrap over the recent span, then transport the fresh
-                # state (pose AND map) into the original world frame.
-                anchor = state.T_CW.cpu().numpy()
-                span = recent[-bootstrap_stride:]
-                fresh = vo.bootstrap(
-                    span[0], img, intermediate=span[1:],
-                    generator=frame_generator(seed, REBOOT_STREAM + idx, dev))
-                if int(fresh.status) == STATUS_TRACKING:
-                    # Map-based scale first (robust to braking or
-                    # accelerating through the blackout), the velocity prior
-                    # as fallback.
-                    scale = None
-                    src = "map"
-                    if last_good_state is not None:
-                        lv = last_good_state.lm_valid.cpu().numpy()
-                        scale = map_scale_from_points(
-                            last_good_state.lm_xyz.cpu().numpy()[lv], fresh,
-                            vo.cam, anchor)
-                    if scale is None:
-                        src = "velocity-prior"
-                        step_len = median_step_len(
-                            [(r.status, r.T_WC[:3, 3]) for r in records])
-                        # The re-bootstrap pair spans bootstrap_stride frames.
-                        scale = (step_len * bootstrap_stride
-                                 if step_len else 1.0)
-                    # The fresh state keeps its own frame counter: candidate
-                    # ages are relative to it.
-                    state = reanchor_state(fresh, anchor, scale)
-                    lost_streak = 0
-                    if verbose:
-                        print(f"frame {idx}: re-bootstrapped after loss "
-                              f"(scale {scale:.3f}, {src})")
+            if recover:
+                with spans.span("runner.recover"):
+                    _reads(state.status)
+                    lost = int(state.status) != STATUS_TRACKING
+                    lost_streak = lost_streak + 1 if lost else 0
+                    if (lost_streak >= recover_after
+                            and len(recent) >= bootstrap_stride):
+                        # Re-bootstrap over the recent span, then transport
+                        # the fresh state (pose AND map) into the original
+                        # world frame.
+                        _reads(state.T_CW)
+                        anchor = state.T_CW.cpu().numpy()
+                        span = recent[-bootstrap_stride:]
+                        spans.COUNTS["recover.attempts"] += 1
+                        fresh = vo.bootstrap(
+                            span[0], img, intermediate=span[1:],
+                            generator=frame_generator(
+                                seed, REBOOT_STREAM + idx, dev))
+                        _reads(fresh.status)
+                        if int(fresh.status) == STATUS_TRACKING:
+                            # Map-based scale first (robust to braking or
+                            # accelerating through the blackout), the
+                            # velocity prior as fallback.
+                            scale = None
+                            src = "map"
+                            if last_good_state is not None:
+                                _reads(last_good_state.lm_valid,
+                                       last_good_state.lm_xyz)
+                                lv = last_good_state.lm_valid.cpu().numpy()
+                                scale = map_scale_from_points(
+                                    last_good_state.lm_xyz.cpu().numpy()[lv],
+                                    fresh, vo.cam, anchor)
+                            if scale is None:
+                                src = "velocity-prior"
+                                step_len = median_step_len(
+                                    [(r.status, r.T_WC[:3, 3])
+                                     for r in records])
+                                # The re-bootstrap pair spans
+                                # bootstrap_stride frames.
+                                scale = (step_len * bootstrap_stride
+                                         if step_len else 1.0)
+                            # The fresh state keeps its own frame counter:
+                            # candidate ages are relative to it.
+                            state = reanchor_state(fresh, anchor, scale)
+                            lost_streak = 0
+                            spans.COUNTS["recover.done"] += 1
+                            if verbose:
+                                print(f"frame {idx}: re-bootstrapped after "
+                                      f"loss (scale {scale:.3f}, {src})")
 
-        refined_ring = False
-        if ring is not None:
-            ring.push(state)
-            if idx % ba_every == 0:
-                from .ba_refine import refine
+            refined_ring = False
+            if ring is not None:
+                ring.push(state)
+                if idx % ba_every == 0:
+                    from .ba_refine import refine
 
-                state = refine(state, ring, vo.cam, mesh=ba_mesh)
-                refined_ring = True
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = (time.perf_counter() - t0) * 1000
-        records.append(_record(idx, state, wall))
-        if refined_ring:
-            # refine() rewrote ring.poses with the refined window, whose last
-            # pose is this frame's: ring pose k goes to the record of ring
-            # frame k.  (The reference writes back before appending this
-            # frame's record, so each of its refined poses lands one record
-            # early, runner.py:346-352.)
-            for k in range(len(ring)):
-                records[-len(ring) + k].T_WC = _T_WC(ring.poses[k])
-        if int(state.status) == STATUS_TRACKING:
-            last_good_state = state
-        if bank is not None:
-            bank.maybe_add(len(records) - 1, idx, state, img)
-        if on_frame is not None:
-            on_frame(records, _snapshot(state, img))
-        last_img = img
-        recent.append(img)
-        if len(recent) > bootstrap_stride + 1:
-            recent.pop(0)
-        if verbose:
-            r = records[-1]
-            print(f"frame {idx}: inliers={r.n_inliers} tracked={r.n_tracked} "
-                  f"status={r.status} {wall:.1f}ms")
-        if checkpoint_dir and idx % checkpoint_every == 0:
-            from . import checkpoint
+                    state = refine(state, ring, vo.cam, mesh=ba_mesh)
+                    refined_ring = True
+            if dev.type == "cuda":
+                with spans.span("runner.sync"):
+                    spans.COUNTS["host.syncs"] += 1
+                    torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1000
+            with spans.span("runner.record"):
+                records.append(_record(idx, state, wall))
+                if refined_ring:
+                    # refine() rewrote ring.poses with the refined window,
+                    # whose last pose is this frame's: ring pose k goes to
+                    # the record of ring frame k.  (The reference writes
+                    # back before appending this frame's record, so each of
+                    # its refined poses lands one record early,
+                    # runner.py:346-352.)
+                    for k in range(len(ring)):
+                        records[-len(ring) + k].T_WC = _T_WC(ring.poses[k])
+                _reads(state.status)
+                if int(state.status) == STATUS_TRACKING:
+                    last_good_state = state
+            if bank is not None:
+                bank.maybe_add(len(records) - 1, idx, state, img)
+            if on_frame is not None:
+                with spans.span("runner.snapshot"):
+                    snap = _snapshot(state, img)
+                with spans.span("runner.on_frame"):
+                    on_frame(records, snap)
+            last_img = img
+            recent.append(img)
+            if len(recent) > bootstrap_stride + 1:
+                recent.pop(0)
+            if verbose:
+                r = records[-1]
+                print(f"frame {idx}: inliers={r.n_inliers} "
+                      f"tracked={r.n_tracked} status={r.status} "
+                      f"{wall:.1f}ms")
+            if checkpoint_dir and idx % checkpoint_every == 0:
+                from . import checkpoint
 
-            checkpoint.save(checkpoint_dir, state, idx, records=records,
-                            ring=ring, bank=bank)
+                checkpoint.save(checkpoint_dir, state, idx, records=records,
+                                ring=ring, bank=bank)
 
     refined = None
     if bank is not None:

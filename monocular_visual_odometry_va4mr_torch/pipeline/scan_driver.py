@@ -40,6 +40,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.state import STATUS_TRACKING, FrameState
 from .runner import (REBOOT_STREAM, frame_generator, map_scale_from_points,
                      median_step_len, reanchor_state)
@@ -221,6 +222,10 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
         return a.astype(dt, copy=False)
 
     def next_block():
+        with spans.span("stream.stack"):
+            return stack_block()
+
+    def stack_block():
         ids, imgs = [], []
         while len(imgs) < block:
             if pending:
@@ -301,9 +306,12 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
             span = imgs[e - s:e + 1]
             if len(span) < s + 1:
                 continue
+            spans.COUNTS["recover.attempts"] += 1
             fresh = vo.bootstrap(
                 span[0], span[-1], intermediate=span[1:-1],
                 generator=frame_generator(seed, REBOOT_STREAM + ids[e], dev))
+            if dev.type == "cuda":
+                spans.d2h(fresh.status.nbytes)
             if int(fresh.status) != STATUS_TRACKING:
                 continue
             # Anchor = the pose held through the LOST frames.
@@ -339,47 +347,55 @@ def run_streaming(vo: VisualOdometry, state: FrameState, frames, seed: int,
     blocks = 0
     nxt = next_block()
     while nxt is not None:
-        ids, imgs, block_in, n = nxt
-        new_state, rows = _scan(vo, state, *block_in, emit_landmarks)
-        # Stack the next block and draw its banks while the device works
-        # (not on the recovery path: the block may need a re-run).
-        nxt_pref = next_block() if not recover else None
-        outs_np = out_t(*(v.numpy() for v in packing.views(rows.cpu())))
-        statuses = outs_np.status
+        with spans.span("stream.block", block=blocks, frames=nxt[3]):
+            ids, imgs, block_in, n = nxt
+            new_state, rows = _scan(vo, state, *block_in, emit_landmarks)
+            # Stack the next block and draw its banks while the device
+            # works (not on the recovery path: the block may need a re-run).
+            nxt_pref = next_block() if not recover else None
+            with spans.span("stream.readback"):
+                if dev.type == "cuda":
+                    spans.d2h(rows.nbytes)
+                outs_np = out_t(*(v.numpy()
+                                  for v in packing.views(rows.cpu())))
+            statuses = outs_np.status
 
-        keep = n
-        state = new_state
-        if recover:
-            rec = try_recover(ids, imgs, statuses, n)
-            if rec is not None:
-                e, state = rec
-                keep = e + 1
-                # Re-run the rest of the block with the recovered state.
-                pending[:0] = list(zip(ids[keep:n], imgs[keep:n]))
-                recoveries += 1
+            keep = n
+            state = new_state
+            if recover:
+                with spans.span("stream.recover"):
+                    rec = try_recover(ids, imgs, statuses, n)
+                if rec is not None:
+                    e, state = rec
+                    keep = e + 1
+                    # Re-run the rest of the block with the recovered state.
+                    pending[:0] = list(zip(ids[keep:n], imgs[keep:n]))
+                    recoveries += 1
+                    spans.COUNTS["recover.done"] += 1
 
-        outs_all.append(out_t(*(o[:keep] for o in outs_np)))
-        frame_ids.extend(ids[:keep])
-        if emit_landmarks:
-            for i in range(keep - 1, -1, -1):
-                if statuses[i] == STATUS_TRACKING:
-                    last_good_lm[0] = (outs_np.lm_uv[i], outs_np.lm_z[i],
-                                       outs_np.lm_valid[i], outs_np.T_CW[i])
-                    break
-        for i in range(keep):
-            pose_hist.append((int(statuses[i]), outs_np.T_CW[i]))
-        del pose_hist[:-12]
-        # LOST streak carried into the next block's trigger scan.
-        streak_in = 0
-        for st_i, _ in pose_hist:
-            streak_in = streak_in + 1 if st_i != STATUS_TRACKING else 0
-        blocks += 1
-        if (checkpoint_dir and checkpoint_every_blocks
-                and blocks % checkpoint_every_blocks == 0):
-            from . import checkpoint
+            outs_all.append(out_t(*(o[:keep] for o in outs_np)))
+            frame_ids.extend(ids[:keep])
+            if emit_landmarks:
+                for i in range(keep - 1, -1, -1):
+                    if statuses[i] == STATUS_TRACKING:
+                        last_good_lm[0] = (outs_np.lm_uv[i], outs_np.lm_z[i],
+                                           outs_np.lm_valid[i],
+                                           outs_np.T_CW[i])
+                        break
+            for i in range(keep):
+                pose_hist.append((int(statuses[i]), outs_np.T_CW[i]))
+            del pose_hist[:-12]
+            # LOST streak carried into the next block's trigger scan.
+            streak_in = 0
+            for st_i, _ in pose_hist:
+                streak_in = streak_in + 1 if st_i != STATUS_TRACKING else 0
+            blocks += 1
+            if (checkpoint_dir and checkpoint_every_blocks
+                    and blocks % checkpoint_every_blocks == 0):
+                from . import checkpoint
 
-            checkpoint.save(checkpoint_dir, state, frame_ids[-1])
-        nxt = nxt_pref if nxt_pref is not None else next_block()
+                checkpoint.save(checkpoint_dir, state, frame_ids[-1])
+            nxt = nxt_pref if nxt_pref is not None else next_block()
 
     merged = out_t(*(np.concatenate([getattr(o, f) for o in outs_all])
                      for f in out_t._fields))

@@ -96,11 +96,12 @@ Departures from the reference, by design:
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from ..core import lie, linalg
+from ..core import lie, linalg, spans
 from ..core.graphs import _HOST_WAITS, GraphCache  # noqa: F401 (tests)
 from ..core.camera import Camera
 from ..core.config import PipelineConfig
@@ -224,7 +225,10 @@ class VisualOdometry:
     def _as_image(self, img) -> torch.Tensor:
         if not torch.is_tensor(img):
             img = torch.as_tensor(img)
-        return img.to(self.device, torch.float32)
+        out = img.to(self.device, torch.float32)
+        if out.device != img.device:
+            spans.h2d(out.nbytes)
+        return out
 
     def _detect(self, image: torch.Tensor):
         det = self.config.detector
@@ -441,8 +445,10 @@ class VisualOdometry:
         return self._bootstrap(img0, img1, intermediate, generator,
                                lambda key, fn, *inputs: fn(*inputs))
 
+    @spans.spanned("vo.bootstrap")
     def _bootstrap(self, img0, img1, intermediate, generator,
                    run) -> FrameState:
+        spans.COUNTS["bootstraps"] += 1
         cfg = self.config
         img0 = self._as_image(img0)
         img1 = self._as_image(img1)
@@ -459,6 +465,7 @@ class VisualOdometry:
             *pyr, uv0, valid = run(("first_frame",), self._first_frame, img0)
             uv1 = uv0
             for image in [*map(self._as_image, intermediate), img1]:
+                spans.COUNTS["bootstrap.hops"] += 1
                 *pyr, uv1, valid = run(("hop",), self._hop, *pyr, image,
                                        uv1, valid)
             pyr1, pair_valid = tuple(pyr), valid
@@ -492,18 +499,21 @@ class VisualOdometry:
         which gets the new state's ``frame_outputs`` packed, with the
         landmark snapshot if ``landmarks``."""
         run_ba = self.ba_due(state)
-        if draws is None:
-            draws = self.step_draws(generator)
-        if self.device.type == "cuda":
-            if self.graphs is None:
-                self.graphs = StepGraphs(self)
-            new = self.graphs.step(state, image, draws, run_ba, outputs,
-                                   landmarks)
-        else:
-            new = self._step_impl(state, image, draws, run_ba)
-            if outputs is not None:
-                self.outputs[landmarks].pack(outputs,
-                                             frame_outputs(new, landmarks))
+        spans.COUNTS["steps"] += 1
+        with spans.span("vo.step", ba=run_ba):
+            if draws is None:
+                draws = self.step_draws(generator)
+            if self.device.type == "cuda":
+                if self.graphs is None:
+                    self.graphs = StepGraphs(self)
+                new = self.graphs.step(state, image, draws, run_ba, outputs,
+                                       landmarks)
+            else:
+                new = self._step_impl(state, image, draws, run_ba)
+                if outputs is not None:
+                    with spans.span("stage.pack"):
+                        self.outputs[landmarks].pack(
+                            outputs, frame_outputs(new, landmarks))
         new.host_frame = state.host_frame_idx() + 1
         if run_ba:
             self.ba_runs += 1
@@ -573,14 +583,17 @@ class VisualOdometry:
         if len(draws) != K:
             raise ValueError(f"{K} images with {len(draws)} draws")
         flags = self.ba_flags(state, K)
-        if self.device.type == "cuda":
-            if self.graphs is None:
-                self.graphs = StepGraphs(self)
-            new = self.graphs.chunk(state, images, draws, flags, outputs,
-                                    landmarks)
-        else:
-            new = self._chunk_impl(state, images, draws, flags, outputs,
-                                   landmarks)
+        spans.COUNTS["steps"] += K
+        spans.COUNTS["chunks"] += 1
+        with spans.span("vo.chunk", K=K, ba=flags):
+            if self.device.type == "cuda":
+                if self.graphs is None:
+                    self.graphs = StepGraphs(self)
+                new = self.graphs.chunk(state, images, draws, flags, outputs,
+                                        landmarks)
+            else:
+                new = self._chunk_impl(state, images, draws, flags, outputs,
+                                       landmarks)
         new.host_frame = state.host_frame_idx() + K
         self.ba_runs += sum(flags)
         return new
@@ -631,138 +644,155 @@ class VisualOdometry:
         cfg = self.config
         K = cfg.capacity.max_landmarks
         dev = self.device
-        image = self._as_image(image)
-        pyr = self.make_pyramid(image)
+        with spans.span("stage.klt"):
+            image = self._as_image(image)
+            pyr = self.make_pyramid(image)
 
-        # (1) KLT both tables in one batched call.
-        all_pts = torch.cat([state.lm_uv, state.cand_uv], 0)
-        all_valid = torch.cat([state.lm_valid, state.cand_valid], 0)
-        new_pts, tracked, _ = self._track_fb(state.prev_pyramid, pyr, all_pts,
-                                             all_valid)
-        lm_uv, lm_valid = new_pts[:K], tracked[:K]
-        cand_uv, cand_valid = new_pts[K:], tracked[K:]
+            # (1) KLT both tables in one batched call.
+            all_pts = torch.cat([state.lm_uv, state.cand_uv], 0)
+            all_valid = torch.cat([state.lm_valid, state.cand_valid], 0)
+            new_pts, tracked, _ = self._track_fb(state.prev_pyramid, pyr,
+                                                 all_pts, all_valid)
+            lm_uv, lm_valid = new_pts[:K], tracked[:K]
+            cand_uv, cand_valid = new_pts[K:], tracked[K:]
 
-        # (2) PnP-RANSAC; hold the pose and report LOST on failure.
-        if self._draw is not None:
-            idx, hyp_ok = self._select(draws.to(dev), lm_valid)
-        else:
-            idx, hyp_ok = self.sampler(draws, lm_valid, cfg.pnp.iterations, 3)
-        T_CW, pnp_inliers, pnp_ok = pnp.solve_pnp_ransac(
-            self.cam, state.lm_xyz, lm_uv, lm_valid, idx, hyp_ok,
-            reproj_threshold_px=cfg.pnp.reproj_err_px,
-            refine_iters=cfg.pnp.refine_iters,
-            min_points=cfg.pnp.min_points)
-        T_CW = torch.where(pnp_ok, T_CW, state.T_CW)
-        lm_valid_kept = torch.where(pnp_ok, lm_valid & pnp_inliers, lm_valid)
+        with spans.span("stage.pnp"):
+            # (2) PnP-RANSAC; hold the pose and report LOST on failure.
+            if self._draw is not None:
+                idx, hyp_ok = self._select(draws.to(dev), lm_valid)
+            else:
+                idx, hyp_ok = self.sampler(draws, lm_valid,
+                                           cfg.pnp.iterations, 3)
+            T_CW, pnp_inliers, pnp_ok = pnp.solve_pnp_ransac(
+                self.cam, state.lm_xyz, lm_uv, lm_valid, idx, hyp_ok,
+                reproj_threshold_px=cfg.pnp.reproj_err_px,
+                refine_iters=cfg.pnp.refine_iters,
+                min_points=cfg.pnp.min_points)
+            T_CW = torch.where(pnp_ok, T_CW, state.T_CW)
+            lm_valid_kept = torch.where(pnp_ok, lm_valid & pnp_inliers,
+                                        lm_valid)
 
-        # (2b) Landmark re-triangulation against the sliding anchor.
-        lm_xyz_base = state.lm_xyz
-        lmc = cfg.landmarks
-        gates = dict(min_baseline_frames=lmc.min_baseline_frames,
-                     min_baseline_angle_deg=lmc.min_baseline_angle_deg,
-                     min_dist=lmc.min_dist, max_dist=lmc.max_dist)
-        if lmc.retriangulate:
-            X_re, re_ok, _ = triangulate.triangulate_candidates(
-                self.cam, state.lm_first_uv, lm_uv, state.lm_T_CW_first,
-                T_CW, lm_valid_kept,
-                torch.zeros(K, dtype=torch.int32, device=dev),
-                enforce_age=False, **gates)
-            if lmc.retri_scale_lock:
-                # Keep the re-triangulated bearing, pull the depth back
-                # toward the previous estimate (geometric blend) so depth
-                # refreshes cannot random-walk the monocular scale.
-                z_old = linalg.matmul(state.lm_xyz, T_CW[2, :3]) + T_CW[2, 3]
-                z_new = linalg.matmul(X_re, T_CW[2, :3]) + T_CW[2, 3]
-                C = -linalg.matmul(T_CW[:3, :3].T, T_CW[:3, 3])
-                blend = lmc.retri_depth_blend
-                z_new_safe = torch.where(z_new.abs() > 1e-6, z_new,
-                                         torch.ones_like(z_new))
-                full_ratio = z_old / z_new_safe
-                depth_ok = (z_old > lmc.min_dist) & (z_new > 1e-6)
-                ratio = torch.where(
-                    depth_ok & (full_ratio > 0),
-                    linalg.power(torch.clamp(full_ratio, min=1e-6),
-                                 1.0 - blend),
-                    torch.ones_like(full_ratio))
-                X_re = torch.where(depth_ok[:, None],
-                                   C + (X_re - C) * ratio[:, None], X_re)
-            lm_xyz_base = torch.where((re_ok & lm_valid_kept)[:, None], X_re,
-                                      state.lm_xyz)
+        with spans.span("stage.retri"):
+            # (2b) Landmark re-triangulation against the sliding anchor.
+            lm_xyz_base = state.lm_xyz
+            lmc = cfg.landmarks
+            gates = dict(min_baseline_frames=lmc.min_baseline_frames,
+                         min_baseline_angle_deg=lmc.min_baseline_angle_deg,
+                         min_dist=lmc.min_dist, max_dist=lmc.max_dist)
+            if lmc.retriangulate:
+                X_re, re_ok, _ = triangulate.triangulate_candidates(
+                    self.cam, state.lm_first_uv, lm_uv, state.lm_T_CW_first,
+                    T_CW, lm_valid_kept,
+                    torch.zeros(K, dtype=torch.int32, device=dev),
+                    enforce_age=False, **gates)
+                if lmc.retri_scale_lock:
+                    # Keep the re-triangulated bearing, pull the depth back
+                    # toward the previous estimate (geometric blend) so
+                    # depth refreshes cannot random-walk the monocular
+                    # scale.
+                    z_old = (linalg.matmul(state.lm_xyz, T_CW[2, :3])
+                             + T_CW[2, 3])
+                    z_new = linalg.matmul(X_re, T_CW[2, :3]) + T_CW[2, 3]
+                    C = -linalg.matmul(T_CW[:3, :3].T, T_CW[:3, 3])
+                    blend = lmc.retri_depth_blend
+                    z_new_safe = torch.where(z_new.abs() > 1e-6, z_new,
+                                             torch.ones_like(z_new))
+                    full_ratio = z_old / z_new_safe
+                    depth_ok = (z_old > lmc.min_dist) & (z_new > 1e-6)
+                    ratio = torch.where(
+                        depth_ok & (full_ratio > 0),
+                        linalg.power(torch.clamp(full_ratio, min=1e-6),
+                                     1.0 - blend),
+                        torch.ones_like(full_ratio))
+                    X_re = torch.where(depth_ok[:, None],
+                                       C + (X_re - C) * ratio[:, None], X_re)
+                lm_xyz_base = torch.where((re_ok & lm_valid_kept)[:, None],
+                                          X_re, state.lm_xyz)
 
-        # (3) Candidate triangulation + promotion.
-        age = state.frame_idx + 1 - state.cand_first_frame
-        X, promote, keep = triangulate.triangulate_candidates(
-            self.cam, state.cand_first_uv, cand_uv, state.cand_T_CW_first,
-            T_CW, cand_valid, age, **gates)
-        lm_slots, lm_acc = alloc_slots(lm_valid_kept, promote)
-        lm_xyz = scatter_rows(lm_xyz_base, lm_slots, X)
-        lm_uv = scatter_rows(lm_uv, lm_slots, cand_uv)
-        lm_valid_new = scatter_rows(lm_valid_kept, lm_slots, lm_acc)
-        # Bump the generation of re-allocated slots so windowed BA can mask
-        # observations of a slot's previous tenant.
-        lm_gen = scatter_add_rows(state.lm_gen, lm_slots, lm_acc)
-        cand_valid = keep
+        with spans.span("stage.triangulate"):
+            # (3) Candidate triangulation + promotion.
+            age = state.frame_idx + 1 - state.cand_first_frame
+            X, promote, keep = triangulate.triangulate_candidates(
+                self.cam, state.cand_first_uv, cand_uv, state.cand_T_CW_first,
+                T_CW, cand_valid, age, **gates)
+            lm_slots, lm_acc = alloc_slots(lm_valid_kept, promote)
+            lm_xyz = scatter_rows(lm_xyz_base, lm_slots, X)
+            lm_uv = scatter_rows(lm_uv, lm_slots, cand_uv)
+            lm_valid_new = scatter_rows(lm_valid_kept, lm_slots, lm_acc)
+            # Bump the generation of re-allocated slots so windowed BA can
+            # mask observations of a slot's previous tenant.
+            lm_gen = scatter_add_rows(state.lm_gen, lm_slots, lm_acc)
+            cand_valid = keep
 
-        # Anchor maintenance: promoted landmarks inherit their candidate's
-        # first observation; anchors older than reanchor_age slide forward.
-        anchor_age = state.lm_anchor_age + 1
-        lm_first_uv = scatter_rows(state.lm_first_uv, lm_slots,
-                                   state.cand_first_uv)
-        lm_T_CW_first = scatter_rows(state.lm_T_CW_first, lm_slots,
-                                     state.cand_T_CW_first)
-        anchor_age = scatter_rows(anchor_age, lm_slots,
-                                  torch.where(lm_acc, age, 0))
-        re_anchor = lm_valid_new & (anchor_age >= lmc.reanchor_age)
-        lm_first_uv = torch.where(re_anchor[:, None], lm_uv, lm_first_uv)
-        lm_T_CW_first = torch.where(re_anchor[:, None, None],
-                                    T_CW.expand(K, 4, 4), lm_T_CW_first)
-        anchor_age = torch.where(re_anchor, 0, anchor_age)
+            # Anchor maintenance: promoted landmarks inherit their
+            # candidate's first observation; anchors older than
+            # reanchor_age slide forward.
+            anchor_age = state.lm_anchor_age + 1
+            lm_first_uv = scatter_rows(state.lm_first_uv, lm_slots,
+                                       state.cand_first_uv)
+            lm_T_CW_first = scatter_rows(state.lm_T_CW_first, lm_slots,
+                                         state.cand_T_CW_first)
+            anchor_age = scatter_rows(anchor_age, lm_slots,
+                                      torch.where(lm_acc, age, 0))
+            re_anchor = lm_valid_new & (anchor_age >= lmc.reanchor_age)
+            lm_first_uv = torch.where(re_anchor[:, None], lm_uv,
+                                      lm_first_uv)
+            lm_T_CW_first = torch.where(re_anchor[:, None, None],
+                                        T_CW.expand(K, 4, 4), lm_T_CW_first)
+            anchor_age = torch.where(re_anchor, 0, anchor_age)
 
-        # (4) Corner replenishment with min-dist dedup.
-        det_uv, _, det_valid = self._detect(image)
-        min_d2 = cfg.detector.min_dist ** 2
-        inf = torch.full((), float("inf"), device=dev)
-        d2_cand = torch.sum((det_uv[:, None, :] - cand_uv[None]) ** 2, -1)
-        d2_lm = torch.sum((det_uv[:, None, :] - lm_uv[None]) ** 2, -1)
-        far_from_cand = torch.all(
-            torch.where(cand_valid[None, :], d2_cand, inf) > min_d2, 1)
-        far_from_lm = torch.all(
-            torch.where(lm_valid_new[None, :], d2_lm, inf) > min_d2, 1)
-        new_mask = det_valid & far_from_cand & far_from_lm
-        c_slots, c_acc = alloc_slots(cand_valid, new_mask)
-        n_det = det_uv.shape[0]
-        cand_uv = scatter_rows(cand_uv, c_slots, det_uv)
-        cand_first_uv = scatter_rows(state.cand_first_uv, c_slots, det_uv)
-        cand_T_CW_first = scatter_rows(state.cand_T_CW_first, c_slots,
-                                       T_CW.expand(n_det, 4, 4))
-        cand_first_frame = scatter_rows(
-            state.cand_first_frame, c_slots,
-            (state.frame_idx + 1).expand(n_det))
-        cand_valid = scatter_rows(cand_valid, c_slots, c_acc)
+        with spans.span("stage.detect"):
+            # (4) Corner replenishment with min-dist dedup.
+            det_uv, _, det_valid = self._detect(image)
+            min_d2 = cfg.detector.min_dist ** 2
+            inf = torch.full((), float("inf"), device=dev)
+            d2_cand = torch.sum((det_uv[:, None, :] - cand_uv[None]) ** 2,
+                                -1)
+            d2_lm = torch.sum((det_uv[:, None, :] - lm_uv[None]) ** 2, -1)
+            far_from_cand = torch.all(
+                torch.where(cand_valid[None, :], d2_cand, inf) > min_d2, 1)
+            far_from_lm = torch.all(
+                torch.where(lm_valid_new[None, :], d2_lm, inf) > min_d2, 1)
+            new_mask = det_valid & far_from_cand & far_from_lm
+            c_slots, c_acc = alloc_slots(cand_valid, new_mask)
+            n_det = det_uv.shape[0]
+            cand_uv = scatter_rows(cand_uv, c_slots, det_uv)
+            cand_first_uv = scatter_rows(state.cand_first_uv, c_slots,
+                                         det_uv)
+            cand_T_CW_first = scatter_rows(state.cand_T_CW_first, c_slots,
+                                           T_CW.expand(n_det, 4, 4))
+            cand_first_frame = scatter_rows(
+                state.cand_first_frame, c_slots,
+                (state.frame_idx + 1).expand(n_det))
+            cand_valid = scatter_rows(cand_valid, c_slots, c_acc)
 
-        n_inl = (pnp_inliers & lm_valid).sum().to(torch.int32)
-        status = torch.where(pnp_ok, STATUS_TRACKING, STATUS_LOST).to(
-            torch.int32)
+            n_inl = (pnp_inliers & lm_valid).sum().to(torch.int32)
+            status = torch.where(pnp_ok, STATUS_TRACKING, STATUS_LOST).to(
+                torch.int32)
+            lm_inlier = pnp_inliers & lm_valid
+            n_tracked = tracked[:K].sum().to(torch.int32)
 
-        # (5) In-step windowed BA: push this frame into the ring; on the
-        # cadence, Schur GN over the window and fold the result back.
-        ba_T, ba_uv, ba_mask, ba_gen = (state.ba_T, state.ba_uv,
-                                        state.ba_mask, state.ba_gen)
-        new_frame = state.frame_idx + 1
-        if cfg.ba.every:
-            Wb = cfg.ba.window
-            # The ring slot on the device: a select over the slots, not a
-            # write at a host index.
-            slot = torch.remainder(new_frame, Wb)
-            hit = torch.arange(Wb, device=dev) == slot
-            ba_T = torch.where(hit[:, None, None], T_CW, ba_T)
-            ba_uv = torch.where(hit[:, None, None], lm_uv, ba_uv)
-            ba_mask = torch.where(hit[:, None], lm_valid_new, ba_mask)
-            ba_gen = torch.where(hit[:, None], lm_gen, ba_gen)
-            # Only with a FULL ring (otherwise the frozen gauge rows would be
-            # unfilled identity poses) and on the trigger cadence: the host
-            # decides (``ba_due``).
-            if run_ba:
+        with spans.span("stage.ring"):
+            # (5) In-step windowed BA: push this frame into the ring; on the
+            # cadence, Schur GN over the window and fold the result back.
+            ba_T, ba_uv, ba_mask, ba_gen = (state.ba_T, state.ba_uv,
+                                            state.ba_mask, state.ba_gen)
+            new_frame = state.frame_idx + 1
+            if cfg.ba.every:
+                Wb = cfg.ba.window
+                # The ring slot on the device: a select over the slots, not
+                # a write at a host index.
+                slot = torch.remainder(new_frame, Wb)
+                hit = torch.arange(Wb, device=dev) == slot
+                ba_T = torch.where(hit[:, None, None], T_CW, ba_T)
+                ba_uv = torch.where(hit[:, None, None], lm_uv, ba_uv)
+                ba_mask = torch.where(hit[:, None], lm_valid_new, ba_mask)
+                ba_gen = torch.where(hit[:, None], lm_gen, ba_gen)
+        # Only with a FULL ring (otherwise the frozen gauge rows would be
+        # unfilled identity poses) and on the trigger cadence: the host
+        # decides (``ba_due``).
+        if cfg.ba.every and run_ba:
+            with spans.span("stage.ba"):
                 ba_T_out, lm_out, T_ba = self._run_ba_branch(
                     ba_T, ba_uv, ba_mask, ba_gen, lm_xyz, lm_gen,
                     lm_valid_new, slot)
@@ -776,7 +806,7 @@ class VisualOdometry:
             lm_xyz=lm_xyz,
             lm_uv=lm_uv,
             lm_valid=lm_valid_new,
-            lm_inlier=pnp_inliers & lm_valid,
+            lm_inlier=lm_inlier,
             lm_gen=lm_gen,
             lm_first_uv=lm_first_uv,
             lm_T_CW_first=lm_T_CW_first,
@@ -793,7 +823,7 @@ class VisualOdometry:
             prev_pyramid=pyr,
             status=status,
             n_inliers=n_inl,
-            n_tracked=tracked[:K].sum().to(torch.int32),
+            n_tracked=n_tracked,
         )
 
     def _chunk_impl(self, state: FrameState, images, draws, flags,
@@ -806,8 +836,9 @@ class VisualOdometry:
         for k, run_ba in enumerate(flags):
             state = self._step_impl(state, images[k], draws[k], run_ba)
             if outputs is not None:
-                self.outputs[landmarks].pack(outputs[k],
-                                             frame_outputs(state, landmarks))
+                with spans.span("stage.pack"):
+                    self.outputs[landmarks].pack(
+                        outputs[k], frame_outputs(state, landmarks))
         return state
 
     def _step_batch_impl(self, states: FrameState, images: torch.Tensor,
@@ -933,6 +964,8 @@ class _Inputs:
             raise ValueError(f"image of shape {tuple(img.shape)}; the step "
                              f"was captured at {tuple(img_buf.shape)}")
         img_buf.copy_(img, non_blocking=True)
+        if img.device.type == "cpu":
+            spans.h2d(img.nbytes)
         if torch.is_tensor(draws):
             shape, dt = tuple(draws.shape), draws.dtype
         elif (isinstance(draws, (list, tuple)) and draws
@@ -949,10 +982,13 @@ class _Inputs:
                              f"with {self.draws.dtype} "
                              f"{tuple(self.draws.shape)}")
         if torch.is_tensor(draws):
+            if draws.device.type == "cpu":
+                spans.h2d(draws.nbytes)
             self.draws.copy_(draws)
         elif all(d.device == self.draws.device for d in draws):
             torch.stack(draws, out=self.draws)
         else:
+            spans.h2d(self.draws.nbytes)
             self.draws.copy_(torch.stack(draws))
         return img_buf
 
@@ -1014,6 +1050,7 @@ class StepGraphs(GraphCache):
         self.vo = vo
         self.packing: Optional[Packing] = None
         self.bufs: Dict[Optional[int], _Buffers] = {}
+        self.bodies: Dict[tuple, tuple] = {}  # key -> (body, its buffers)
 
     def step(self, state: FrameState, image, draws, run_ba: bool,
              outputs: Optional[torch.Tensor], landmarks: bool,
@@ -1021,23 +1058,25 @@ class StepGraphs(GraphCache):
         """Replay the step for one state, or for ``batch`` stacked states
         (``image`` (S, H, W), ``draws`` (S, iterations, 3))."""
         vo = self.vo
-        b = self._load_state(state, batch)
-        io = b.io(() if batch is None else (batch,))
-        img_buf = io.load(image, draws)
+        with spans.span("vo.load"):
+            b = self._load_state(state, batch)
+            io = b.io(() if batch is None else (batch,))
+            img_buf = io.load(image, draws)
         out = None if outputs is None else landmarks
         key = (img_buf.dtype, run_ba, vo.klt_backend, out, batch)
         if key not in self.graphs:
             body, outs_of = ((vo._step_impl, frame_outputs) if batch is None
                              else (vo._step_batch_impl, batch_frame_outputs))
 
-            def run():
-                new = body(b.static, img_buf, io.draws, run_ba)
-                if out is not None:
-                    vo.outputs[out].pack(io.outputs[out], outs_of(new, out))
+            def run(static, img, draws, outs):
+                new = body(static, img, draws, run_ba)
+                if outs is not None:
+                    with spans.span("stage.pack"):
+                        vo.outputs[out].pack(outs, outs_of(new, out))
                 return new
 
-            self._capture(key, b, run, lambda: body(b.static, img_buf,
-                                                    io.draws, run_ba))
+            self._capture(key, b, io, img_buf, out, run,
+                          lambda: body(b.static, img_buf, io.draws, run_ba))
         return self._replayed(key, b, io, outputs, landmarks)
 
     def chunk(self, state: FrameState, images, draws, flags: tuple,
@@ -1047,9 +1086,10 @@ class StepGraphs(GraphCache):
         ``draws`` K banks, ``flags`` the BA frames, ``outputs`` (K, nbytes)
         or None)."""
         vo = self.vo
-        b = self._load_state(state, None)
-        io = b.io((len(flags),))
-        img_buf = io.load(images, draws)
+        with spans.span("vo.load"):
+            b = self._load_state(state, None)
+            io = b.io((len(flags),))
+            img_buf = io.load(images, draws)
         out = None if outputs is None else landmarks
         key = ("chunk", img_buf.dtype, flags, vo.klt_backend, out)
         if key not in self.graphs:
@@ -1062,10 +1102,9 @@ class StepGraphs(GraphCache):
                     vo._step_impl(b.static, img_buf[k], io.draws[k], run_ba)
 
             self._capture(
-                key, b,
-                lambda: vo._chunk_impl(
-                    b.static, img_buf, io.draws, flags,
-                    None if out is None else io.outputs[out], bool(out)),
+                key, b, io, img_buf, out,
+                lambda static, img, draws, outs: vo._chunk_impl(
+                    static, img, draws, flags, outs, bool(out)),
                 warm_up)
         return self._replayed(key, b, io, outputs, landmarks)
 
@@ -1073,10 +1112,11 @@ class StepGraphs(GraphCache):
                   outputs: Optional[torch.Tensor],
                   landmarks: bool) -> FrameState:
         self.replay(key)
-        snap = b.state.clone()
-        b.resident = (snap, snap._version)
-        if outputs is not None:
-            outputs.copy_(io.outputs[landmarks])
+        with spans.span("vo.out"):
+            snap = b.state.clone()
+            b.resident = (snap, snap._version)
+            if outputs is not None:
+                outputs.copy_(io.outputs[landmarks])
         new = b.static.with_tensors(self.packing.views(snap))
         new._step_buf = (self.packing.specs, snap)
         return new
@@ -1094,6 +1134,8 @@ class StepGraphs(GraphCache):
         specs, buf = getattr(state, "_step_buf", (None, None))
         if (specs != self.packing.specs or buf.shape != b.state.shape
                 or buf.device != b.state.device):
+            spans.h2d(sum(t.nbytes for t in tensors
+                          if t.device.type == "cpu"))
             self.packing.pack(b.state, tensors)
             b.resident = None
         # The snapshot's views share its version counter, which a write
@@ -1104,18 +1146,102 @@ class StepGraphs(GraphCache):
             b.resident = (buf, buf._version)
         return b
 
-    def _capture(self, key, b: _Buffers, run: Callable[[], FrameState],
-                 warm_up: Callable[[], object]) -> None:
-        """Capture ``run()``, a body over ``b``'s buffers, with the new
-        state it returns written over the state buffer."""
+    def _capture(self, key, b: _Buffers, io: _Inputs, img_buf, out,
+                 run: Callable, warm_up: Callable[[], object]) -> None:
+        """Capture ``run(static state, image, draws, outputs or None)``, a
+        body over ``b``'s and ``io``'s buffers, with the new state it
+        returns written over the state buffer; the key's buffers and body
+        are kept for ``stage_map``."""
+        bufs = (b.state, b.static, img_buf, io.draws,
+                None if out is None else io.outputs[out])
+        self.bodies[key] = (run, bufs)
+        # Warm-up: its result is dropped, the buffers keep the input.
+        self.capture(key, lambda: self._record(run, *bufs), warm_up)
 
-        def record():
-            new = run()
+    def _record(self, run, state, static, img, draws, outs) -> None:
+        new = run(static, img, draws, outs)
+        with spans.span("stage.pack"):
             # Through a scratch buffer: the new state may share tensors with
             # the one it was made from.
-            scratch = torch.empty_like(b.state)
+            scratch = torch.empty_like(state)
             self.packing.pack(scratch, new.tensors())
-            b.state.copy_(scratch)
+            state.copy_(scratch)
 
-        # Warm-up: its result is dropped, the buffers keep the input.
-        self.capture(key, record, warm_up)
+    def stage_map(self) -> Dict[tuple, list]:
+        """For each step and chunk key captured, the stage of each device
+        operation of its graph, in launch order: ``{key: [(name, stage),
+        ...]}``, ``name`` by ``op_kind``, ``stage`` the innermost
+        ``stage.*`` span (``core.spans``) around the call that queued it,
+        or None.
+
+        Each key's body runs op by op on copies of its state, image,
+        draws and outputs buffers (a replay's results stay as they are),
+        twice, under ``torch.profiler`` with the spans on and mirrored into
+        the profiler's own ranges, so the stage of each device operation of
+        the second run is read on the profiler's clock.  A replay of the
+        key on one stream runs the same operations in this order, so its
+        device events split by index into stages where their names agree.
+        Raises if spans or a profiler are recording."""
+        from torch.profiler import ProfilerActivity, profile
+
+        maps = {}
+        for key, (run, bufs) in self.bodies.items():
+            state, static, img, draws, outs = bufs
+            copy = state.clone()
+            scratch = (copy, static.with_tensors(self.packing.views(copy)),
+                       img.clone(), draws.clone(),
+                       None if outs is None else outs.clone())
+            torch.cuda.synchronize(self.device)
+            spans.start(mirror=True)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    # A profile can lose the first device operations it
+                    # records (on an H100, after earlier profiles in the
+                    # process: a uint8 step's cast and pyramid), so the
+                    # body runs twice and the second run is read.
+                    self._record(run, *scratch)
+                    torch.cuda.synchronize(self.device)
+                    begun = spans.clock()
+                    self._record(run, *scratch)
+                    torch.cuda.synchronize(self.device)
+            finally:
+                spans.stop()
+            t0 = prof.profiler.kineto_results.trace_start_ns()
+            events, links, _ = spans.trace_events(
+                prof.profiler.kineto_results.events(), t0)
+            maps[key] = device_stages(events, links, (begun - t0) / 1e3)
+        return maps
+
+
+def device_stages(events, links, after_us: float = -math.inf) -> list:
+    """``[(name, stage), ...]`` of the device events of
+    ``core.spans.trace_events``' ``(events, links)`` whose runtime call
+    started from ``after_us`` on (an event with no call stays in), in the
+    order they started, ``name`` by ``op_kind`` and ``stage`` the innermost
+    ``stage.*`` range around the call, or None: ``StepGraphs.stage_map``'s
+    arithmetic."""
+    ranges = [(s, t, name) for kind, name, s, t in events
+              if kind == "range" and name.startswith("stage.")]
+    out = []
+    device = [d for d, e in enumerate(events) if e[0] == "device"]
+    for d in sorted(device, key=lambda d: events[d][2]):
+        at = events[links[d]][2] if d in links else None
+        if at is not None and at < after_us:
+            continue
+        inner = [r for r in ranges if at is not None and r[0] <= at <= r[1]]
+        stage = min(inner, key=lambda r: r[1] - r[0])[2] if inner else None
+        out.append((op_kind(events[d][1]), stage))
+    return out
+
+
+def op_kind(name: str) -> str:
+    """A device op's name as a graph's replay and an op-by-op run both
+    give it: a graph runs a device-to-device copy as a ``memcpy<bits>_post``
+    kernel where an op-by-op run shows ``Memcpy DtoD``, so copies and fills
+    are named by their kind alone."""
+    low = name.lower()
+    for kind in ("memcpy", "memset"):
+        if low.startswith(kind):
+            return kind
+    return name

@@ -12,6 +12,7 @@ run measures no device.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import multiprocessing
 import os
@@ -22,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..core import spans
 
 REPO = Path(__file__).resolve().parents[2]
 BUILD = REPO / "build"
@@ -131,50 +134,34 @@ def render_frames(scene, n):
 
 
 class CallCounts:
-    """While installed (``with``), counts ``vo``'s steps (a frame a
-    ``step``, K a ``step_chunk``; ``chunks`` counts the chunks) and its
-    bootstraps' KLT hops (``len(intermediate) + 1`` a KLT bootstrap, 0 a
-    SIFT one), so a caller can hold ``klt_lk``'s launches at 3 per step and
-    hop."""
+    """Within ``with``, the steps (a frame a ``step``, K a ``step_chunk``;
+    ``chunks`` counts the chunks), the bootstraps and their KLT hops
+    (``len(intermediate) + 1`` a KLT bootstrap, 0 a SIFT one) that the
+    port ran, read as deltas of ``core.spans.COUNTS`` (``steps``,
+    ``chunks``, ``bootstraps``, ``bootstrap.hops``) and frozen at the
+    exit, so a caller can hold ``klt_lk``'s launches of ``vo`` at 3 per
+    step and hop."""
 
-    _WRAPPED = ("step", "step_chunk", "bootstrap")
+    FIELDS = dict(steps="steps", chunks="chunks", bootstraps="bootstraps",
+                  hops="bootstrap.hops")
 
     def __init__(self, vo):
-        self.vo, self.steps, self.hops, self.bootstraps = vo, 0, 0, 0
-        self.chunks = 0
+        self.vo = vo
+        self._at = self._end = None
 
     def __enter__(self):
-        vo = self.vo
-        self._saved = {k: vo.__dict__[k] for k in self._WRAPPED
-                       if k in vo.__dict__}
-        step, chunk, boot = vo.step, vo.step_chunk, vo.bootstrap
-        sift = vo.config.bootstrap_method == "sift"
-
-        def counted_step(state, image, generator=None, **kw):
-            self.steps += 1
-            return step(state, image, generator=generator, **kw)
-
-        def counted_chunk(state, images, draws, **kw):
-            self.steps += images.shape[0]
-            self.chunks += 1
-            return chunk(state, images, draws, **kw)
-
-        def counted_bootstrap(img0, img1, intermediate=(), generator=None):
-            self.bootstraps += 1
-            self.hops += 0 if sift else len(intermediate) + 1
-            return boot(img0, img1, intermediate=intermediate,
-                        generator=generator)
-
-        vo.step, vo.step_chunk, vo.bootstrap = (counted_step, counted_chunk,
-                                                counted_bootstrap)
+        self._at = collections.Counter(spans.COUNTS)
         return self
 
     def __exit__(self, *exc):
-        for k in self._WRAPPED:
-            if k in self._saved:
-                setattr(self.vo, k, self._saved[k])
-            else:
-                delattr(self.vo, k)
+        self._end = collections.Counter(spans.COUNTS)
+
+    def __getattr__(self, field):
+        if field not in CallCounts.FIELDS or self._at is None:
+            raise AttributeError(field)
+        key = CallCounts.FIELDS[field]
+        now = spans.COUNTS if self._end is None else self._end
+        return now[key] - self._at[key]
 
     def expected_lk(self) -> int:
         """``klt_lk``'s launches these calls make: 3 per step and hop on

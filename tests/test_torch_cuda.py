@@ -13,6 +13,7 @@ as the plain version rounds it); only the order of the window sums differs.
 Positions of features both accept agree to 1e-3 px, and at least 99% of ok
 flags agree (the rest sit within rounding of a gate threshold).
 """
+import bisect
 import subprocess
 import sys
 
@@ -1426,3 +1427,160 @@ def test_a_chunk_that_fails_to_capture_raises(cuda):
     out = subprocess.run([sys.executable, "-c", CHUNK_CAPTURE_PROBE],
                          capture_output=True, text=True, timeout=600)
     assert out.stdout.split() == ["raised", "0", "0"], out.stderr[-2000:]
+
+
+# --- spans on the device trace's clock (core/spans.py) -----------------------
+
+def kineto(prof, records=()):
+    """A profiler's events as ``core.spans.trace_events`` reads them, and
+    the spans' ``graph.replay`` records, on one axis in us: (events, links,
+    replays as sorted (start, end, attrs))."""
+    from monocular_visual_odometry_va4mr_torch.core import spans
+
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    events, links, _ = spans.trace_events(
+        prof.profiler.kineto_results.events(), t0)
+    replays = sorted(((r[3] - t0) / 1e3, (r[4] - t0) / 1e3, r[5])
+                     for r in records if r[2] == "graph.replay")
+    return events, links, replays
+
+
+@pytest.fixture(scope="module")
+def traced_stream():
+    """A chunked stream on the card (the in-step BA every 2 frames over a
+    ring of 3: chunks of 2, single steps before the ring fills and at a
+    block's tail), blocks of 7 without recovery, run once to capture its
+    graphs and once more with spans on under ``torch.profiler`` (CUDA
+    activity, as the benchmark's traced passes): (vo, frames, records,
+    profiler)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocular_visual_odometry_va4mr_torch.core import spans
+    from monocular_visual_odometry_va4mr_torch.pipeline import (runner,
+                                                                scan_driver)
+
+    cuda = torch.device("cuda")
+    make, frames = graph_vo(cuda, num_frames=20)
+    vo = make()
+
+    def stream():
+        s = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                         generator=runner.frame_generator(0, 0, cuda))
+        return scan_driver.run_streaming(
+            vo, s, ((i, frames[i]) for i in range(3, 20)), 0, block=7)
+
+    stream()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spans.start()
+        try:
+            stream()
+            torch.cuda.synchronize()
+        finally:
+            records = spans.stop()
+    return vo, frames, records, prof
+
+
+def replay_of(t0, t1, replays):
+    """The ``graph.replay`` span (start, end, attrs) around a host call
+    from ``t0`` to ``t1`` us, within ``core.spans.CLOCK_US``, or None."""
+    from monocular_visual_odometry_va4mr_torch.core.spans import CLOCK_US
+
+    i = bisect.bisect_right([r[0] for r in replays], t0 + CLOCK_US) - 1
+    if i >= 0 and t1 <= replays[i][1] + CLOCK_US:
+        return replays[i]
+    return None
+
+
+def test_graph_launches_lie_in_their_replay_spans(traced_stream):
+    """Spans and the profiler share a clock: every ``cudaGraphLaunch`` of a
+    profiled chunked stream lies inside a ``graph.replay`` span, within
+    20 us, and the device work it queued starts after the span began."""
+    vo, _, records, prof = traced_stream
+    events, links, replays = kineto(prof, records)
+    launches = [e for e in events
+                if e[0] == "host" and e[1] == "cudaGraphLaunch"]
+    assert len(launches) >= len(replays) > 0
+    outside = [e[2:] for e in launches
+               if replay_of(e[2], e[3], replays) is None]
+    assert not outside, (len(outside), outside[:5])
+    linked = 0
+    for d, h in links.items():
+        if events[h][1] == "cudaGraphLaunch":
+            r = replay_of(events[h][2], events[h][3], replays)
+            assert events[d][2] >= r[0], (events[d], r[:2])
+            linked += 1
+    assert linked > len(replays)
+
+
+def test_stage_map_splits_a_chunk_and_a_step_replay(traced_stream):
+    """``StepGraphs.stage_map`` against the traced stream: for each step
+    and chunk key, its last replay's device events, in order, carry the
+    map's names one for one (a copy or a fill by its kind: a graph runs a
+    copy as a kernel), and the map gives every one of them a stage."""
+    from monocular_visual_odometry_va4mr_torch.pipeline.vo import op_kind
+
+    vo, _, records, prof = traced_stream
+    events, links, replays = kineto(prof, records)
+    maps = vo.graphs.stage_map()
+    assert {k[0] == "chunk" for k in maps} == {True, False}
+    last = {}
+    for r in replays:
+        if r[2]["key"] in maps:
+            assert r[2]["segments"] == 1
+            last[r[2]["key"]] = r
+    assert set(last) == set(maps)
+    for key, r in last.items():
+        names = [op_kind(events[d][1])
+                 for d in sorted(links, key=lambda d: events[d][2])
+                 if events[links[d]][1] == "cudaGraphLaunch"
+                 and replay_of(*events[links[d]][2:], [r]) is not None]
+        staged = maps[key]
+        assert names == [n for n, _ in staged], (key, len(names),
+                                                 len(staged))
+        assert all(st is not None for _, st in staged), key
+        assert {"stage.klt", "stage.pnp", "stage.pack"} <= {
+            st for _, st in staged}
+
+
+def test_spans_add_no_runtime_call(traced_stream):
+    """A replayed pass makes the same CUDA runtime calls, in the same
+    order, with spans off and on: a span reads the host's clock only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocular_visual_odometry_va4mr_torch.core import spans
+    from monocular_visual_odometry_va4mr_torch.pipeline import runner
+
+    vo, frames, _, _ = traced_stream
+    cuda = torch.device("cuda")
+    imgs = torch.from_numpy(np.stack(frames[3:7])).to(cuda)
+    s0 = vo.bootstrap(frames[0], frames[2], intermediate=frames[1:2],
+                      generator=runner.frame_generator(0, 0, cuda))
+    draws = [vo.step_draws(runner.frame_generator(0, i, cuda))
+             for i in range(3, 7)]
+
+    def steps():
+        s = vo.step(s0, imgs[0], draws=draws[0])
+        s = vo.step_chunk(s, imgs[1:3], draws[1:3])
+        vo.step(s, imgs[3], draws=draws[3])
+        torch.cuda.synchronize()
+
+    steps()  # captures what the stream did not
+    calls = []
+    for on in (False, True, False):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if on:
+                spans.start()
+            try:
+                steps()
+            finally:
+                if on:
+                    assert spans.stop()
+        events, _, _ = kineto(prof)
+        calls.append([e[1] for e in sorted(events, key=lambda e: e[2])
+                      if e[0] == "host" and e[1].startswith(spans.RUNTIME)])
+    assert calls[0] == calls[1] == calls[2]
+    assert calls[0].count("cudaGraphLaunch") == 3
